@@ -3,30 +3,54 @@
 
     python3 chip_smoke.py
 
-1. Builds the CUDA kernels from ``datacomp_tpu_torch/csrc`` (nvcc, sm_90a).
+1. Builds the CUDA kernels from ``datacomp_tpu_torch/csrc`` (nvcc, sm_90a,
+   one process a source).
 2. K1 histogram on a 16 MiB chunk with ``valid_len = n - 12345``: kernel ==
    plain PyTorch version == ``np.bincount``; the service's 1 KB probe passes.
 3. K2 encode and K3 decode on 16 MiB ``text`` and ``skewed`` chunks: the
    kernel equals the plain version bit for bit (live words, total bits, gap
-   array) and the decode returns the input.  Kernel and plain times are taken
-   with CUDA events after a warm-up, cycling through copies of the inputs that
-   together exceed the L2 cache, so that each call reads its input cold.
-4. The main path: ``bench.py``'s 128 MB mixed corpus (text, compressible,
+   array) and the decode returns the input.
+4. K4 codebook on a few hundred histograms (the corpus's 8 chunks, random
+   symbol subsets, heavy ties, one, two and no symbols, Fibonacci histograms
+   of depth 20, 32 and 40): lengths equal the plain version's everywhere,
+   codes wherever the depth is at most 32.
+5. K1's A/B variants K1s and K1p through their entry point, the harness
+   ``datacomp_tpu_torch.tools.ab_histogram``, on 16 MiB ``random`` and
+   ``skewed`` input with ``valid_len = n - 12345``; then each configuration
+   against ``np.bincount`` and the plain version.
+6. The fast path: ``bench.py``'s 128 MB mixed corpus (text, compressible,
    skewed, random) through the port's CLI, ``compress --format 2
    --codebook-mode fast --no-verify`` in 16 MiB chunks, then ``decompress``,
    each with its stage breakdown.  The restored file equals the input, the
-   ``.dcz`` equals the one the port's host codec (``CpuCompressionService``,
-   the native C++ encoder) writes, byte for byte, K2 and K3 ran once per chunk
-   that is not stored raw, K1 ran (the services' probes), and no plain version
-   or host route ran.  The host codec's own compress and decompress rates on
-   the same corpus are printed beside the GPU service's.
+   ``.dcz`` equals the one the port's host codec (``CpuCompressionService``)
+   writes, byte for byte, K2 and K3 ran once per chunk that is not stored
+   raw, K1 ran (the services' probes), and no plain version or host route
+   ran.  The host codec's own rates on the same corpus are printed beside.
+7. The device-codebook path, v2: the same corpus through ``compress --format
+   2 --codebook-mode device``, then ``decompress``.  The input is restored;
+   each chunk's lengths equal the plain K4 on its histogram, and exactly the
+   chunks whose optimal code needs 8 bits a byte or more are stored raw; K1
+   ran once per coded chunk and probe, K4 and K2 once per coded chunk, K3
+   once per coded chunk of depth at most 16, and the deeper chunks took the
+   counted host decode route; nothing else.
+8. The device-codebook path, v1: the ``.dcz`` equals the port's host codec's
+   in the same config, K1, K4 and K2 ran once per chunk (and K1 per probe),
+   and the round trip restores the input through the host decode route.
+
+Kernel, plain and library times are taken with CUDA events after a warm-up,
+cycling through copies of the inputs that together exceed the L2 cache, so
+that each call reads its input cold.  The launch counts of the kernels line
+come from the run of each kernel's path (phases 5-7), with the counts set to
+0 just before it and read just after; the comparison launches are not in
+them.  ``bound_ms`` is the larger of the bytes each kernel must move over
+3.35 TB/s and its operations over 67 T/s (the H100's non-tensor rate).
 
 The script imports the port alone, never jax or ``datacomp_tpu``; the CPU
-tests hold the port's host codec to the JAX package's byte for byte.  All
-comparisons are exact: the outputs are integers and bytes.  Any failure exits
-non-zero.  The script needs a CUDA device and exits non-zero without one.  The
-line before the last is a JSON object of the kernels' launches, errors and
-times; the last is ``{"ok": true, "device": {...}}``.
+tests hold the port to the JAX package.  All comparisons are exact: the
+outputs are integers and bytes.  Any failure exits non-zero.  The script
+needs a CUDA device and exits non-zero without one.  The line before the last
+is a JSON object of the kernels' launches, errors, times and bounds; the last
+is ``{"ok": true, "device": {...}}``.
 """
 
 import filecmp
@@ -43,7 +67,11 @@ import torch
 CHUNK = 16 << 20  # the default chunk size, and the kernels' main-path shape
 SUBBLOCK = 4032  # the default v2 sub-block (symbols)
 CORPUS_MB = 128  # bench.py's default corpus
-COLD_COPIES = 6  # 6 x 16 MiB of input per timed op: more than the 50 MB L2
+TAIL = 12345  # bytes that valid_len leaves out of the histogram inputs
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (NVIDIA data sheet)
+# the H100's non-tensor float32 rate, taken as the ceiling of the integer
+# and compare instructions these kernels are made of
+OPS_PER_S = 67e12
 
 
 def fail(msg: str) -> None:
@@ -57,25 +85,12 @@ def card_line() -> str:
     ).stdout.strip()
 
 
-def cuda_ms(fn, inputs: list, reps: int) -> float:
-    """Mean device time of ``fn(*inputs[i % len(inputs)])`` over ``reps``
-    calls, after one warm-up.  ``inputs`` holds copies of the same arguments,
-    together larger than L2, so that each call finds its input cold."""
-    fn(*inputs[-1])
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for i in range(reps):
-        fn(*inputs[i % len(inputs)])
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / reps
-
-
-def copies(*tensors: torch.Tensor) -> list:
-    """``COLD_COPIES`` argument tuples, each with its own copy of ``tensors``."""
-    return [tuple(t.clone() for t in tensors) for _ in range(COLD_COPIES)]
+def bound(nbytes: int, ops: int) -> dict:
+    """The least time the card could take: bytes over the memory rate or
+    operations over the scalar rate, whichever is longer."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / OPS_PER_S
+    return {"bound_ms": max(t_bytes, t_ops) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
 def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> int:
@@ -85,16 +100,17 @@ def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> int:
 def check_histogram(cfg) -> dict:
     from datacomp_tpu_torch.ops import histogram, histogram_reference
     from datacomp_tpu_torch.services import GpuFrequencyService
+    from datacomp_tpu_torch.tools import copies, cuda_ms
 
     host = np.random.default_rng(0).integers(0, 256, CHUNK, dtype=np.uint8)
-    valid = CHUNK - 12345
+    valid = CHUNK - TAIL
     x = torch.from_numpy(host).cuda()
     k = histogram(x, valid)
     r = histogram_reference(x, valid)
     want = np.bincount(host[:valid], minlength=256)
     if not (np.array_equal(k.cpu().numpy(), want) and np.array_equal(r.cpu().numpy(), want)):
         fail("K1 histogram differs from np.bincount")
-    # the main path's own K1 shape: the services' 1 KB availability probe
+    # the services' own K1 shape: the 1 KB availability probe
     probe = torch.from_numpy((np.arange(1024) % 251).astype(np.uint8)).cuda()
     if not torch.equal(histogram(probe, 1024), histogram_reference(probe, 1024)):
         fail("K1 histogram differs from the plain version on the 1 KB probe")
@@ -105,9 +121,12 @@ def check_histogram(cfg) -> dict:
         "max_abs_err": max_abs_err(k, r),
         "ms": cuda_ms(lambda t: histogram(t, valid), xs, 24),
         "plain_ms": cuda_ms(lambda t: histogram_reference(t, valid), xs, 6),
+        **bound(valid + 256 * 4, valid),
+        "library_ms": cuda_ms(lambda t: torch.bincount(t[:valid], minlength=256), xs, 6),
     }
-    print(f"K1 histogram 16 MiB random: kernel {res['ms']} ms, plain "
-          f"{res['plain_ms']} ms, equal to np.bincount; probe ok", flush=True)
+    print(f"K1 histogram 16 MiB random: kernel {res['ms']} ms, plain {res['plain_ms']} "
+          f"ms, torch.bincount {res['library_ms']} ms, bound {res['bound_ms']} ms; "
+          f"equal to np.bincount; probe ok", flush=True)
     return res
 
 
@@ -118,6 +137,7 @@ def check_codec(kind: str) -> dict:
         decode_tables_to_torch, encode, encode_reference, payload_to_words,
         words_to_bytes,
     )
+    from datacomp_tpu_torch.tools import copies, cuda_ms
     from datacomp_tpu_torch.utils.testdata import generate_bytes
 
     data = np.frombuffer(generate_bytes(kind, CHUNK), np.uint8)
@@ -149,6 +169,7 @@ def check_codec(kind: str) -> dict:
         fail(f"K3 {kind}: decode does not return the input")
 
     xs, ws = copies(x), copies(words, gaps)
+    table_bytes = sum(t.numel() * t.element_size() for t in tables)
     res = {
         "depth": int(lengths.max()),
         "bits_per_byte": tb / CHUNK,
@@ -157,20 +178,146 @@ def check_codec(kind: str) -> dict:
             "ms": cuda_ms(lambda t: encode(t, CHUNK, lt, ct, out_words, SUBBLOCK), xs, 24),
             "plain_ms": cuda_ms(
                 lambda t: encode_reference(t, CHUNK, lt, ct, out_words, SUBBLOCK), xs, 3),
+            # the chunk and tables in; the live words and the gap array out
+            **bound(CHUNK + 256 * 8 + 4 * live + 4 * nsub, CHUNK),
+            "library_ms": None,
         },
         "decode": {
             "max_abs_err": max_abs_err(kd, rd),
             "ms": cuda_ms(lambda w, g: decode(w, g, *tables, SUBBLOCK, CHUNK), ws, 12),
             "plain_ms": cuda_ms(
                 lambda w, g: decode_reference(w, g, *tables, SUBBLOCK, CHUNK), ws, 1),
+            # the stream, gap array and tables in; the chunk out
+            **bound(4 * words.numel() + 4 * nsub + table_bytes + CHUNK, CHUNK),
+            "library_ms": None,
         },
     }
     print(f"K2/K3 16 MiB {kind} (depth {res['depth']}, {res['bits_per_byte']} "
           f"bits/byte): encode kernel {res['encode']['ms']} ms, plain "
-          f"{res['encode']['plain_ms']} ms; decode kernel {res['decode']['ms']} "
-          f"ms, plain {res['decode']['plain_ms']} ms; bit-exact, round trip ok",
-          flush=True)
+          f"{res['encode']['plain_ms']} ms, bound {res['encode']['bound_ms']} ms; "
+          f"decode kernel {res['decode']['ms']} ms, plain {res['decode']['plain_ms']} "
+          f"ms, bound {res['decode']['bound_ms']} ms; bit-exact, round trip ok", flush=True)
     return res
+
+
+def codebook_histograms(corpus: np.ndarray) -> list:
+    """(name, int32[256]) histograms for K4: the corpus's chunks, and others
+    made from a numpy seed."""
+    rng = np.random.default_rng(2)
+    cases = [(f"chunk-{i // CHUNK}", np.bincount(corpus[i : i + CHUNK], minlength=256))
+             for i in range(0, corpus.size, CHUNK)]
+    for i in range(200):  # random symbol subsets, counts up to 2^26
+        k = int(rng.integers(1, 257))
+        top = max(1, min(1 << int(rng.integers(0, 27)), ((1 << 30) - 1) // k))
+        hist = np.zeros(256, np.int64)
+        hist[rng.choice(256, k, replace=False)] = rng.integers(1, top + 1, k)
+        cases.append((f"subset-{i}", hist))
+    for i in range(60):  # heavy ties: all equal, many equal pairs, few values
+        k = int(rng.integers(2, 257))
+        hist = np.zeros(256, np.int64)
+        syms = rng.choice(256, k, replace=False)
+        if i % 3 == 0:
+            hist[syms] = int(rng.integers(1, 1 << 20))
+        elif i % 3 == 1:
+            hist[syms] = np.repeat(rng.integers(1, 1000, (k + 1) // 2), 2)[:k]
+        else:
+            hist[syms] = rng.choice(rng.integers(1, 50, 3), k)
+        cases.append((f"ties-{i}", hist))
+    one, two = np.zeros(256, np.int64), np.zeros(256, np.int64)
+    one[200] = 1 << 24
+    two[[7, 8]] = [5, 1 << 20]
+    cases += [("one", one), ("two", two), ("empty", np.zeros(256, np.int64))]
+    for depth in (20, 32, 40):
+        fib = np.zeros(256, np.int64)
+        a, b = 1, 1
+        for s in range(depth + 1):
+            fib[s] = a
+            a, b = b, a + b
+        cases.append((f"fibonacci-{depth}", fib))
+    return [(name, h.astype(np.int32)) for name, h in cases]
+
+
+def check_codebook(corpus: np.ndarray) -> dict:
+    from datacomp_tpu_torch.ops import codebook, codebook_reference
+    from datacomp_tpu_torch.tools import copies, cuda_ms
+
+    cases = codebook_histograms(corpus)
+    err = 0
+    depths = {}
+    for name, hist in cases:
+        h = torch.from_numpy(hist).cuda()
+        kl, kc = codebook(h)
+        rl, rc = codebook_reference(h)
+        depth = int(rl.max())
+        if not torch.equal(kl.cpu(), rl.cpu()):
+            fail(f"K4 {name}: kernel lengths differ from the plain version")
+        if depth <= 32 and not torch.equal(kc.cpu(), rc.cpu()):
+            fail(f"K4 {name}: kernel codes differ from the plain version")
+        err = max(err, max_abs_err(kl, rl), max_abs_err(kc, rc) if depth <= 32 else 0)
+        if name.startswith(("fibonacci", "chunk")):
+            depths[name] = depth
+    if [depths[f"fibonacci-{d}"] for d in (20, 32, 40)] != [20, 32, 40]:
+        fail(f"K4: Fibonacci depths {depths}")
+    text = torch.from_numpy(cases[0][1]).cuda()  # the corpus's first chunk: text
+    hs = copies(text)
+    res = {
+        "max_abs_err": err,
+        "ms": cuda_ms(lambda t: codebook(t), hs, 200),
+        "plain_ms": cuda_ms(lambda t: codebook_reference(t), hs, 20),
+        # 1 KB in, 2 KB out; a rank compare for each pair of symbols, twice
+        # (the sort and the canonical ranks)
+        **bound(256 * 4 * 3, 2 * 256 * 256),
+        "library_ms": None,
+    }
+    print(f"K4 codebook: {len(cases)} histograms, lengths equal everywhere and codes "
+          f"at depth <= 32; depths {depths}; text chunk kernel {res['ms']} ms, plain "
+          f"{res['plain_ms']} ms, bound {res['bound_ms']} ms", flush=True)
+    return res
+
+
+def check_variants() -> dict:
+    """K1s and K1p through their entry point, the A/B harness, with the
+    counts set to 0 before it; then every configuration against np.bincount
+    and the plain version."""
+    from datacomp_tpu_torch.ops import (
+        COUNTERS, PARTIAL_K, STACKED, histogram_partial, histogram_reference,
+        histogram_stacked, reset_counters,
+    )
+    from datacomp_tpu_torch.tools import ab_histogram
+    from datacomp_tpu_torch.utils.testdata import generate_bytes
+
+    reset_counters()
+    records = ab_histogram.run(16, kinds=("random", "skewed"),
+                               emit=lambda line: print(f"ab_histogram: {line}", flush=True))
+    launches = {name: COUNTERS[name][0].value
+                for name in ("histogram_stacked", "histogram_partial")}
+    if not all(r["exact"] for r in records):
+        fail(f"a histogram variant differs from np.bincount: {records}")
+    valid = CHUNK - TAIL
+    err = {"histogram_stacked": 0, "histogram_partial": 0}
+    for kind in ("random", "skewed"):
+        host = np.frombuffer(generate_bytes(kind, CHUNK), np.uint8)
+        want = np.bincount(host[:valid], minlength=256)
+        x = torch.from_numpy(host.copy()).cuda()
+        plain = histogram_reference(x, valid)
+        if not np.array_equal(plain.cpu().numpy(), want):
+            fail(f"the plain histogram differs from np.bincount on {kind}")
+        runs = [("histogram_stacked", histogram_stacked(x, valid, g, b))
+                for g, b in STACKED.values()]
+        runs += [("histogram_partial", histogram_partial(x, valid, k)) for k in PARTIAL_K]
+        for name, got in runs:
+            if not torch.equal(got.cpu(), plain.cpu()):
+                fail(f"{name} differs from the plain version on {kind}")
+            err[name] = max(err[name], max_abs_err(got, plain))
+    ms = {(r["variant"], r["kind"]): r["ms"] for r in records}
+    print("K1 variants, 16 MiB, ms cold (K1 | torch.bincount | stacked stacked8 "
+          "stacked-i16 | partial-k1 k2 k4 k8):", flush=True)
+    for kind in ("random", "skewed"):
+        row = [ms["histogram", kind], ms["torch.bincount", kind]]
+        row += [ms[name, kind] for name in STACKED]
+        row += [ms[f"partial-k{k}", kind] for k in PARTIAL_K]
+        print(f"  {kind}: {row}", flush=True)
+    return {"launches": launches, "max_abs_err": err, "ms": ms}
 
 
 def write_corpus(path: str) -> None:
@@ -185,77 +332,143 @@ def write_corpus(path: str) -> None:
         f.write(generate_bytes("random", (CORPUS_MB - 3 * per) * mb))
 
 
-def run_main_path() -> dict:
+def run_cli(label: str, compress_args: list, src: str, dcz: str, out: str) -> dict:
+    """compress then decompress through the CLI, with every count set to 0
+    just before and read just after."""
     from datacomp_tpu_torch import cli
-    from datacomp_tpu_torch.config import load_config
-    from datacomp_tpu_torch.core import read_container
-    from datacomp_tpu_torch.ops import COUNTERS, max_code_len, reset_counters
-    from datacomp_tpu_torch.services import CpuCompressionService, gpu_service
+    from datacomp_tpu_torch.ops import COUNTERS, reset_counters
+    from datacomp_tpu_torch.services import gpu_service
 
-    with tempfile.TemporaryDirectory() as d:
-        src, dcz, out, ref, ref_out = (
-            os.path.join(d, f) for f in ("bench.bin", "p.dcz", "p.out", "c.dcz", "c.out"))
-        write_corpus(src)
-        size = os.path.getsize(src)
-
-        reset_counters()
-        gpu_service.host_encode_routes.reset()
-        gpu_service.host_decode_routes.reset()
-        t0 = time.perf_counter()
-        rc_c = cli.main(["compress", src, dcz, "16", "--format", "2", "--codebook-mode",
-                         "fast", "--no-verify", "--stages"])
-        t1 = time.perf_counter()
-        rc_d = cli.main(["decompress", dcz, out, "16", "--stages"])
-        t2 = time.perf_counter()
-        launches = {name: k.value for name, (k, _) in COUNTERS.items()}
-        plain = {name: r.value for name, (_, r) in COUNTERS.items()}
-        routes = (gpu_service.host_encode_routes.value, gpu_service.host_decode_routes.value)
-        print(flush=True)
-        if rc_c or rc_d:
-            fail(f"CLI exit codes: compress {rc_c}, decompress {rc_d}")
-        if not filecmp.cmp(src, out, shallow=False):
-            fail("decompress did not restore the input")
-
-        cfg = load_config(compression={
-            "chunk_size_mb": 16, "format_version": 2, "codebook_mode": "fast"})
-        t3 = time.perf_counter()  # service start included, as in the CLI's times
-        with CpuCompressionService(cfg) as svc:
-            svc.compress(src, ref)
-            t4 = time.perf_counter()
-            svc.decompress(ref, ref_out)
-            t5 = time.perf_counter()
-        if not filecmp.cmp(dcz, ref, shallow=False):
-            fail("the port's .dcz differs from the host codec's")
-        if not filecmp.cmp(src, ref_out, shallow=False):
-            fail("the host codec did not restore the input")
-
-        header, _ = read_container(dcz)
-        depths = [max_code_len(c.code_lengths) for c in header.chunks]
-        live = sum(1 for dep in depths if dep > 0)
-        dcz_size = os.path.getsize(dcz)
-
-    print(f"main path: {len(depths)} chunks, codebook depths {depths} (0 = stored raw); "
-          f"launches {launches}; plain calls {plain}; host routes (encode, decode) {routes}",
-          flush=True)
-    if live == 0 or launches["encode"] != live or launches["decode"] != live:
-        fail(f"K2/K3 launches {launches} != {live} chunks not stored raw")
-    if launches["histogram"] < 1:
-        fail("K1 did not run on the main path")
-    if any(plain.values()) or any(routes):
-        fail("a plain version or a host route ran on the main path")
+    reset_counters()
+    gpu_service.host_encode_routes.reset()
+    gpu_service.host_decode_routes.reset()
+    t0 = time.perf_counter()
+    rc_c = cli.main(["compress", src, dcz, "16", *compress_args, "--no-verify", "--stages"])
+    t1 = time.perf_counter()
+    rc_d = cli.main(["decompress", dcz, out, "16", "--stages"])
+    t2 = time.perf_counter()
     res = {
-        "launches": launches,
-        "compress_mbps": size / 1e6 / (t1 - t0),
-        "decompress_mbps": size / 1e6 / (t2 - t1),
-        "ratio": dcz_size / size,
-        "host_compress_mbps": size / 1e6 / (t4 - t3),
-        "host_decompress_mbps": size / 1e6 / (t5 - t4),
+        "launches": {name: k.value for name, (k, _) in COUNTERS.items()},
+        "plain": {name: r.value for name, (_, r) in COUNTERS.items()},
+        "encode_routes": gpu_service.host_encode_routes.value,
+        "decode_routes": gpu_service.host_decode_routes.value,
+        "probes": 2,  # one availability probe for each CLI command's service
     }
-    print(f"main path: {size} bytes, compress {res['compress_mbps']} MB/s, "
-          f"decompress {res['decompress_mbps']} MB/s, ratio {res['ratio']}; "
-          f".dcz byte-identical to the host codec, round trip ok", flush=True)
-    print(f"host codec, same corpus and config: compress {res['host_compress_mbps']} "
-          f"MB/s, decompress {res['host_decompress_mbps']} MB/s", flush=True)
+    print(flush=True)
+    if rc_c or rc_d:
+        fail(f"{label}: CLI exit codes: compress {rc_c}, decompress {rc_d}")
+    if not filecmp.cmp(src, out, shallow=False):
+        fail(f"{label}: decompress did not restore the input")
+    size = os.path.getsize(src)
+    res.update(compress_mbps=size / 1e6 / (t1 - t0), decompress_mbps=size / 1e6 / (t2 - t1),
+               ratio=os.path.getsize(dcz) / size)
+    if any(res["plain"].values()) or res["encode_routes"]:
+        fail(f"{label}: a plain version or a host encode route ran: {res}")
+    print(f"{label}: {size} bytes, compress {res['compress_mbps']} MB/s, decompress "
+          f"{res['decompress_mbps']} MB/s, ratio {res['ratio']}; launches {res['launches']}; "
+          f"host decode routes {res['decode_routes']}; round trip ok", flush=True)
+    return res
+
+
+def host_codec(cfg_over: dict, src: str, dcz: str, out: str) -> tuple:
+    """The port's host codec on the same corpus and config: (compress MB/s,
+    decompress MB/s), service start included as in the CLI's times."""
+    from datacomp_tpu_torch.config import load_config
+    from datacomp_tpu_torch.services import CpuCompressionService
+
+    size = os.path.getsize(src)
+    t0 = time.perf_counter()
+    with CpuCompressionService(load_config(compression={"chunk_size_mb": 16, **cfg_over})) as svc:
+        svc.compress(src, dcz)
+        t1 = time.perf_counter()
+        svc.decompress(dcz, out)
+        t2 = time.perf_counter()
+    if not filecmp.cmp(src, out, shallow=False):
+        fail("the host codec did not restore the input")
+    return size / 1e6 / (t1 - t0), size / 1e6 / (t2 - t1)
+
+
+def run_fast_path(d: str, src: str) -> dict:
+    from datacomp_tpu_torch.core import read_container
+    from datacomp_tpu_torch.ops import max_code_len
+
+    dcz, out, ref = (os.path.join(d, f) for f in ("fast.dcz", "fast.out", "fast-host.dcz"))
+    res = run_cli("fast path (v2, host codebook)",
+                  ["--format", "2", "--codebook-mode", "fast"], src, dcz, out)
+    host = host_codec({"format_version": 2, "codebook_mode": "fast"}, src, ref,
+                      os.path.join(d, "fast-host.out"))
+    if not filecmp.cmp(dcz, ref, shallow=False):
+        fail("fast path: the port's .dcz differs from the host codec's")
+    header, _ = read_container(dcz)
+    depths = [max_code_len(c.code_lengths) for c in header.chunks]
+    live = sum(1 for dep in depths if dep > 0)
+    launches = res["launches"]
+    print(f"fast path: codebook depths {depths} (0 = stored raw); .dcz byte-identical "
+          f"to the host codec's, which ran at {host[0]} MB/s compress, {host[1]} MB/s "
+          f"decompress", flush=True)
+    if live == 0 or launches["encode"] != live or launches["decode"] != live:
+        fail(f"fast path: K2/K3 launches {launches} != {live} chunks not stored raw")
+    if launches["histogram"] != res["probes"] or res["decode_routes"]:
+        fail(f"fast path: K1 launches {launches['histogram']} or host decode routes "
+             f"{res['decode_routes']} are not the probes' {res['probes']} and 0")
+    res.update(host_compress_mbps=host[0], host_decompress_mbps=host[1])
+    return res
+
+
+def run_device_v2(d: str, src: str) -> dict:
+    from datacomp_tpu_torch.core import huffman, read_container
+    from datacomp_tpu_torch.ops import TABLE_BITS, codebook_reference, max_code_len
+
+    dcz, out = os.path.join(d, "dev2.dcz"), os.path.join(d, "dev2.out")
+    res = run_cli("device codebook, v2", ["--format", "2", "--codebook-mode", "device"],
+                  src, dcz, out)
+    header, _ = read_container(dcz)
+    data = np.fromfile(src, np.uint8)
+    depths = []
+    for meta in header.chunks:
+        chunk = data[meta.original_offset : meta.original_offset + meta.original_size]
+        hist = np.bincount(chunk, minlength=256)
+        opt_bits = int(hist @ huffman.build_code_lengths(hist, mode="fast").astype(np.int64))
+        raw = not meta.code_lengths.any()
+        if raw != (opt_bits >= 8 * chunk.size):
+            fail(f"device v2: chunk {meta.index} raw-stored {raw}, optimal bits {opt_bits}")
+        if not raw:
+            want, _ = codebook_reference(torch.from_numpy(hist.astype(np.int32)))
+            if not np.array_equal(meta.code_lengths, want.numpy()):
+                fail(f"device v2: chunk {meta.index} lengths differ from K4's plain version")
+        depths.append(max_code_len(meta.code_lengths))
+    coded = sum(1 for dep in depths if dep > 0)
+    shallow = sum(1 for dep in depths if 0 < dep <= TABLE_BITS)
+    want = {"histogram": coded + res["probes"], "codebook": coded, "encode": coded,
+            "decode": shallow}
+    got = {name: res["launches"][name] for name in want}
+    print(f"device v2: codebook depths {depths} (0 = stored raw); launches {got}, derived "
+          f"from the container {want}; host decode routes {res['decode_routes']} for "
+          f"{coded - shallow} chunks deeper than {TABLE_BITS} bits", flush=True)
+    if coded == 0 or got != want or res["decode_routes"] != coded - shallow:
+        fail("device v2: launch counts or routes differ from those the container implies")
+    return res
+
+
+def run_device_v1(d: str, src: str) -> dict:
+    from datacomp_tpu_torch.core import read_container
+
+    dcz, out, ref = (os.path.join(d, f) for f in ("dev1.dcz", "dev1.out", "dev1-host.dcz"))
+    res = run_cli("device codebook, v1", ["--format", "1", "--codebook-mode", "device"],
+                  src, dcz, out)
+    host = host_codec({"format_version": 1, "codebook_mode": "device"}, src, ref,
+                      os.path.join(d, "dev1-host.out"))
+    if not filecmp.cmp(dcz, ref, shallow=False):
+        fail("device v1: the port's .dcz differs from the host codec's")
+    chunks = len(read_container(dcz)[0].chunks)
+    want = {"histogram": chunks + res["probes"], "codebook": chunks, "encode": chunks,
+            "decode": 0}
+    got = {name: res["launches"][name] for name in want}
+    print(f"device v1: {chunks} chunks; .dcz byte-identical to the host codec's (which "
+          f"ran at {host[0]} / {host[1]} MB/s); launches {got}, expected {want}; host "
+          f"decode routes {res['decode_routes']}", flush=True)
+    if got != want or res["decode_routes"] != chunks:
+        fail("device v1: launch counts or routes are not one per chunk")
     return res
 
 
@@ -276,7 +489,7 @@ def main() -> int:
     print(f"kernel build: {time.perf_counter() - t0} s ({os.path.basename(_build.library_path())})",
           flush=True)
     # the shared native host codec (the prepass's histogram) also builds on
-    # first use: build it here, so that the main path's times exclude it
+    # first use: build it here, so that the paths' times exclude it
     t0 = time.perf_counter()
     built = native.is_available()
     print(f"host codec build: {time.perf_counter() - t0} s "
@@ -284,22 +497,45 @@ def main() -> int:
 
     hist = check_histogram(load_config(compression={"chunk_size_mb": 16}))
     codec = {kind: check_codec(kind) for kind in ("text", "skewed")}
-    path = run_main_path()
+    with tempfile.TemporaryDirectory() as d:
+        src = os.path.join(d, "bench.bin")
+        write_corpus(src)
+        cbook = check_codebook(np.fromfile(src, np.uint8))
+        variants = check_variants()
+        fast = run_fast_path(d, src)
+        dev2 = run_device_v2(d, src)
+        run_device_v1(d, src)
     jax_side = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "datacomp_tpu"))
     if jax_side:
         fail(f"jax or the JAX package was imported: {jax_side}")
 
     source = "datacomp_tpu_torch/csrc/{}.cu"
+    valid = CHUNK - TAIL
+    ms = variants["ms"]
+
+    def variant(name: str, config: str) -> dict:
+        return {"name": name, "route": "cuda", "source": source.format("histogram_variants"),
+                "launches": variants["launches"][name],
+                "max_abs_err": variants["max_abs_err"][name], "config": config,
+                "ms": ms[config, "random"], "plain_ms": hist["plain_ms"],
+                **bound(valid + 256 * 4, valid),
+                "library_ms": ms["torch.bincount", "random"]}
+
     kernels = [
         {"name": "histogram", "route": "cuda", "source": source.format("histogram"),
          "replaces": "datacomp_tpu/ops/histogram_pallas.py:114",
-         "launches": path["launches"]["histogram"], **hist},
+         "launches": dev2["launches"]["histogram"], **hist},
         {"name": "encode", "route": "cuda", "source": source.format("encode"),
          "replaces": "datacomp_tpu/ops/encode_merge.py:228",
-         "launches": path["launches"]["encode"], **codec["text"]["encode"]},
+         "launches": fast["launches"]["encode"], **codec["text"]["encode"]},
         {"name": "decode", "route": "cuda", "source": source.format("decode"),
          "replaces": "datacomp_tpu/ops/decode.py:133",
-         "launches": path["launches"]["decode"], **codec["text"]["decode"]},
+         "launches": fast["launches"]["decode"], **codec["text"]["decode"]},
+        {"name": "codebook", "route": "cuda", "source": source.format("codebook"),
+         "replaces": "datacomp_tpu/ops/codebook.py:37",
+         "launches": dev2["launches"]["codebook"], **cbook},
+        {**variant("histogram_stacked", "stacked"), "replaces": "tools/ab_hist_pallas_r3.py:42"},
+        {**variant("histogram_partial", "partial-k4"), "replaces": "tools/ab_hist_pallas_r4.py:50"},
     ]
     print(card_line())
     print(json.dumps({"kernels": kernels}))

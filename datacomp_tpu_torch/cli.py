@@ -3,6 +3,7 @@
 arguments, progress line and report).
 
     python -m datacomp_tpu_torch.cli compress IN OUT.dcz [CHUNK_MB] --format 2 --codebook-mode fast
+    python -m datacomp_tpu_torch.cli compress IN OUT.dcz --format 2 --codebook-mode device
     python -m datacomp_tpu_torch.cli decompress OUT.dcz RESTORED
     python -m datacomp_tpu_torch.cli verify OUT.dcz --deep
 
@@ -149,9 +150,12 @@ def build_parser() -> argparse.ArgumentParser:
                     help="container version: 1=reference-compatible, 2=+gap arrays (device decode)")
     sp.add_argument("--no-verify", action="store_true",
                     help="skip the post-compress integrity verification")
-    sp.add_argument("--codebook-mode", choices=["java", "fast"], default=None,
+    sp.add_argument("--codebook-mode", choices=["java", "fast", "device"], default=None,
                     help="java = reference-bit-exact tie-breaks (default), "
-                         "fast = two-queue optimal")
+                         "fast = two-queue optimal, device = histogram, codebook "
+                         "and encode all on the GPU: optimal codes with no length "
+                         "cap (the config's max_code_len is ignored), so v2 files "
+                         "differ from the host codec's capped ones")
     sp.set_defaults(func=cmd_compress)
 
     sp = sub.add_parser("decompress", aliases=["d"], help="decompress a .dcz file")

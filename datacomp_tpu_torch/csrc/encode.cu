@@ -26,7 +26,9 @@
 //      another word.  So there is about one atomic per 32 output bits, and
 //      the atomics resolve the words that two threads share.
 // Writes at or beyond out_words are dropped (the wrapper's caller raises
-// when the total exceeds the capacity).  Codes must be at most 32 bits.
+// when the total exceeds the capacity).  Codes must be at most 32 bits; a
+// longer one still moves the bit offsets by its length and stays within the
+// bounds checks, but its bits are wrong.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -137,7 +139,10 @@ write_kernel(const uint8_t* __restrict__ data, int64_t n, int64_t valid_len,
     const int l = len[k];
     if (l) {
       const int64_t wi = off >> 5;
-      const uint64_t v = (uint64_t)code_s[byte_at(q, k)] << (64 - l - (int)(off & 31));
+      // a code of more than 32 bits (a codebook the codec refuses) may need
+      // a negative shift: it writes nothing, so that no shift is undefined
+      const int sh = 64 - l - (int)(off & 31);
+      const uint64_t v = sh >= 0 ? (uint64_t)code_s[byte_at(q, k)] << sh : 0;
       if (wi != cur) {
         flush(words, out_words, cur, acc);
         cur = wi;

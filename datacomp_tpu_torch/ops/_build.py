@@ -3,6 +3,8 @@
 The kernels in ``csrc/*.cu`` are compiled with ``nvcc`` for Hopper
 (``sm_90a``) into one shared library with a plain C interface, at first use,
 and bound with :mod:`ctypes`: no PyTorch headers, so the build takes seconds.
+Each source compiles in its own ``nvcc``, all started together, and one more
+call links the objects.
 The library's file name carries a hash of the sources and flags, so an edited
 source rebuilds.  The pipeline calls the codec from several worker threads and
 several processes may share a checkout, so the build sits behind a thread lock
@@ -27,10 +29,10 @@ import torch
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
-SOURCES = ("histogram.cu", "encode.cu", "decode.cu")
+SOURCES = ("histogram.cu", "encode.cu", "decode.cu", "codebook.cu", "histogram_variants.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-Xcompiler", "-fPIC",
 )
 
 _P = ctypes.c_void_p
@@ -43,6 +45,9 @@ _SIGNATURES = {
     "dcz_encode_block_sums": (_P, _I64, _I64, _P, _P, _P),
     "dcz_encode_write": (_P, _I64, _I64, _P, _P, _P, _P, _I64, _P, _I32, _P),
     "dcz_decode": (_P, _I64, _P, _I64, _P, _P, _P, _I32, _I64, _P, _P),
+    "dcz_codebook": (_P, _P, _P, _P),
+    "dcz_histogram_stacked": (_P, _I64, _I32, _I32, _P, _P),
+    "dcz_histogram_partial": (_P, _I64, _I32, _P, _P),
 }
 
 _lock = threading.Lock()
@@ -84,6 +89,19 @@ def library_path() -> str:
     return os.path.join(BUILD_DIR, f"libdcz_kernels_{h.hexdigest()[:16]}.so")
 
 
+def _run_all(cmds: list) -> None:
+    """Run the commands at once, wait for all, and raise if any failed."""
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for cmd in cmds]
+    failed = []
+    for cmd, proc in zip(cmds, procs):
+        _, err = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed (exit {proc.returncode}): {' '.join(cmd)}\n{err}")
+    if failed:
+        raise RuntimeError("\n".join(failed))
+
+
 def _build(path: str) -> None:
     os.makedirs(BUILD_DIR, exist_ok=True)
     with open(os.path.join(BUILD_DIR, "build.lock"), "w") as lock:
@@ -91,13 +109,15 @@ def _build(path: str) -> None:
         if os.path.exists(path):  # another process built it meanwhile
             return
         tmp = f"{path}.{os.getpid()}.tmp"
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
-               *(os.path.join(CSRC, s) for s in SOURCES)]
-        res = subprocess.run(cmd, capture_output=True, text=True)
-        if res.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed (exit {res.returncode}): {' '.join(cmd)}\n{res.stderr}"
-            )
+        objs = [f"{tmp}.{os.path.splitext(s)[0]}.o" for s in SOURCES]
+        try:
+            _run_all([[_nvcc(), *NVCC_FLAGS, "-c", "-o", obj, os.path.join(CSRC, src)]
+                      for src, obj in zip(SOURCES, objs)])
+            _run_all([[_nvcc(), *NVCC_FLAGS, "-shared", "-o", tmp, *objs]])
+        finally:
+            for obj in objs:
+                if os.path.exists(obj):
+                    os.remove(obj)
         os.replace(tmp, path)
 
 

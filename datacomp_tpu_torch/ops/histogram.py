@@ -16,10 +16,32 @@ kernel_launches = _build.LaunchCounter()
 reference_calls = _build.LaunchCounter()
 
 
+def bincount(data: torch.Tensor, valid_len: int) -> torch.Tensor:
+    """int32[256] ``torch.bincount`` of the bytes below ``valid_len`` (the
+    plain version of K1 and of its A/B variants, uncounted)."""
+    return torch.bincount(data[:valid_len].long(), minlength=256).to(torch.int32)
+
+
 def histogram_reference(data: torch.Tensor, valid_len: int) -> torch.Tensor:
     """Plain PyTorch: ``torch.bincount`` of the bytes below ``valid_len``."""
     reference_calls.add()
-    return torch.bincount(data[:valid_len].long(), minlength=256).to(torch.int32)
+    return bincount(data, valid_len)
+
+
+def check_args(data: torch.Tensor, valid_len: int) -> bool:
+    """Raise unless ``data`` is a uint8 chunk with ``valid_len`` inside it that
+    the kernels take; return True when it lies on the CPU."""
+    _build.check_tensor(data, "data", torch.uint8)
+    n = data.numel()
+    if not 0 <= valid_len <= n:
+        raise ValueError(f"valid_len {valid_len} outside [0, {n}]")
+    if n >= 1 << 31:
+        raise ValueError(f"histogram counts are int32: {n} bytes is too many")
+    if _build.on_cpu(data):
+        return True
+    if data.data_ptr() % 16:
+        raise ValueError("data must be 16-byte aligned for the kernel's vector loads")
+    return False
 
 
 def histogram(data: torch.Tensor, valid_len: int) -> torch.Tensor:
@@ -28,16 +50,8 @@ def histogram(data: torch.Tensor, valid_len: int) -> torch.Tensor:
     A CUDA tensor launches the kernel; a CPU tensor takes the plain version.
     """
     valid_len = int(valid_len)
-    _build.check_tensor(data, "data", torch.uint8)
-    n = data.numel()
-    if not 0 <= valid_len <= n:
-        raise ValueError(f"valid_len {valid_len} outside [0, {n}]")
-    if n >= 1 << 31:
-        raise ValueError(f"histogram counts are int32: {n} bytes is too many")
-    if _build.on_cpu(data):
+    if check_args(data, valid_len):
         return histogram_reference(data, valid_len)
-    if data.data_ptr() % 16:
-        raise ValueError("data must be 16-byte aligned for the kernel's vector loads")
     hist = torch.zeros(256, dtype=torch.int32, device=data.device)
     lib = _build.library()
     with torch.cuda.device(data.device):

@@ -1,11 +1,19 @@
 """GPU backend: the device chunk codec and the compression service.
 
-Port of ``datacomp_tpu/services/tpu_service.py`` to PyTorch and CUDA, for one
-chunk at a time with a codebook built on the host:
+Port of ``datacomp_tpu/services/tpu_service.py`` to PyTorch and CUDA, one
+chunk at a time:
 
-* encode: the shared host prepass (SHA-256, native histogram, codebook,
-  raw-store decision), then the encoder kernel K2 on the device, one copy of
-  the live words back and the shared container write;
+* encode with a host codebook (``codebook_mode`` ``java`` or ``fast``): the
+  shared host prepass (SHA-256, native histogram, codebook, raw-store
+  decision), then the encoder kernel K2 on the device, one copy of the live
+  words back and the shared container write;
+* encode with a device codebook (``codebook_mode="device"``): histogram K1,
+  codebook K4 and encode K2 on the device, with nothing fetched in between.
+  In v2 the host prepass keeps SHA-256, the histogram and the raw-store
+  decision, and one copy brings back the lengths, the gap array and the live
+  words; v1 has no host histogram.  The device's codes are optimal and
+  uncapped (``max_code_len`` is ignored), so v2 files differ from the host
+  codec's, which caps v2 codes;
 * decode: raw-stored chunks pass through; v2 chunks with codes of at most
   16 bits run the gap-array decoder kernel K3; v1 chunks and deeper codebooks
   go to the host codec through a counted route;
@@ -38,6 +46,7 @@ from ..ops import (
     MAX_CODE_LEN,
     TABLE_BITS,
     build_decode_tables,
+    codebook,
     codebook_to_torch,
     decode,
     decode_tables_to_torch,
@@ -88,6 +97,22 @@ def get_available_devices() -> list:
     return lines
 
 
+def _check_depth(lengths: np.ndarray) -> None:
+    """Raise the host codec's error for a code deeper than the format's 32-bit
+    codewords (``core.huffman.build_code_lengths``)."""
+    ml = int(lengths.max())
+    if ml > MAX_CODE_LEN:
+        raise ValueError(
+            f"Huffman code length {ml} exceeds {MAX_CODE_LEN} "
+            "bits; chunk too skewed — reduce chunk size"
+        )
+
+
+def _as_int32(t: torch.Tensor) -> torch.Tensor:
+    """A 32- or 64-bit integer tensor's bits as a 1-D int32 tensor (a view)."""
+    return t.reshape(-1).view(torch.int32)
+
+
 def _host_tensor(a: np.ndarray) -> torch.Tensor:
     """A host array as a CPU tensor, shared where it can be (read-only arrays
     are copied: torch tensors are writable)."""
@@ -131,15 +156,11 @@ class GpuFrequencyService(FrequencyService):
 
 
 class GpuChunkCodec(ChunkCodec):
-    """Per-chunk device codec: host codebook → device encode (K2); gap-array
-    device decode (K3) for v2 containers."""
+    """Per-chunk device codec: host codebook → device encode (K2), or in
+    device-codebook mode histogram (K1) → codebook (K4) → encode (K2) on the
+    device; gap-array device decode (K3) for v2 containers."""
 
     def __init__(self, config: AppConfig, device: torch.device):
-        if config.compression.codebook_mode == "device":
-            raise ValueError(
-                "codebook_mode='device' needs the on-device codebook builder, "
-                "which the port does not have yet; use 'fast' or 'java'"
-            )
         self.config = config
         self.device = device
         self.freq = GpuFrequencyService(config, device)
@@ -154,36 +175,61 @@ class GpuChunkCodec(ChunkCodec):
 
     def _host_prepass(self, data: np.ndarray, metrics: StageMetrics):
         """SHA-256, host histogram, host codebook and the raw-store decision
-        (the host-codebook branches of ``TpuChunkCodec._host_prepass``).
+        (``TpuChunkCodec._host_prepass``).
 
         Returns ``(sha, lengths, codes, opt_bits, finished)``; ``finished`` is
         a complete :class:`EncodedChunk` (empty input, or an incompressible
         v2 chunk stored raw) that never touches the device, else None.
-        ``opt_bits`` is the chunk's exact encoded size under the codebook."""
+        ``opt_bits`` is the chunk's exact encoded size under the codebook.
+        In device-codebook mode ``lengths`` and ``codes`` are None; in v2
+        ``opt_bits`` then comes from the uncapped host ``fast`` code, an
+        optimal code over the same histogram as the device's, and v1 has
+        neither histogram nor ``opt_bits`` (None)."""
         n = data.size
+        comp = self.config.compression
+        device_codebook = comp.codebook_mode == "device"
+        v2 = comp.format_version >= 2
         with metrics.timed(Stage.CHECKSUM_COMPUTE, n):
             sha = compute_sha256(data)
         if n == 0:
             return sha, None, None, 0, EncodedChunk(b"", np.zeros(256, np.int32), sha, None)
+        if device_codebook and not v2:
+            return sha, None, None, None, None
         with metrics.timed(Stage.FREQUENCY_ANALYSIS, n):
             hist = self._cpu.freq.compute_histogram(data)
+        lengths = codes = None
         with metrics.timed(Stage.HUFFMAN_TREE_BUILD, n):
-            lengths, codes = huffman.build_codebook(
-                hist, mode=self.config.compression.codebook_mode,
-                max_len=self.config.compression.effective_max_code_len(),
-            )
-        opt_bits = int(hist @ lengths.astype(np.int64))
-        if self.config.compression.format_version >= 2 and opt_bits >= n * 8:
+            if device_codebook:  # raises, as the host codec does, past 32 bits
+                opt_lengths = huffman.build_code_lengths(hist, mode="fast")
+            else:
+                lengths, codes = huffman.build_codebook(
+                    hist, mode=comp.codebook_mode, max_len=comp.effective_max_code_len(),
+                )
+                opt_lengths = lengths
+        opt_bits = int(hist @ opt_lengths.astype(np.int64))
+        if v2 and opt_bits >= n * 8:
             # incompressible: store raw (v2 marker: all-zero lengths)
             return sha, lengths, codes, opt_bits, EncodedChunk(
                 data.tobytes(), np.zeros(256, np.int32), sha, None
             )
         return sha, lengths, codes, opt_bits, None
 
+    def _upload(self, data: np.ndarray) -> torch.Tensor:
+        """The chunk, zero-padded to the codec's chunk size, on the device."""
+        n = data.size
+        x = torch.empty(self.padded_size, dtype=torch.uint8, device=self.device)
+        x[:n].copy_(_host_tensor(data))
+        x[n:].zero_()
+        return x
+
     def encode_chunk(self, data: np.ndarray, metrics: StageMetrics) -> EncodedChunk:
         sha, lengths, codes, opt_bits, finished = self._host_prepass(data, metrics)
         if finished is not None:
             return finished
+        if lengths is None:
+            if self.config.compression.format_version >= 2:
+                return self._encode_device_codebook_v2(data, sha, opt_bits, metrics)
+            return self._encode_device_codebook_v1(data, sha, metrics)
         if max_code_len(lengths) > MAX_CODE_LEN:
             host_encode_routes.add()
             return self._cpu.encode_chunk(data, metrics)
@@ -191,9 +237,7 @@ class GpuChunkCodec(ChunkCodec):
         n = data.size
         v2 = self.config.compression.format_version >= 2
         with metrics.timed(Stage.ENCODING, n):
-            x = torch.empty(self.padded_size, dtype=torch.uint8, device=self.device)
-            x[:n].copy_(_host_tensor(data))
-            x[n:].zero_()
+            x = self._upload(data)
             lens_t, codes_t = codebook_to_torch(lengths, codes, self.device)
             words, total_bits, gaps = encode(
                 x, n, lens_t, codes_t, self.out_words, self.subblock if v2 else 0
@@ -211,6 +255,57 @@ class GpuChunkCodec(ChunkCodec):
                 nsub = (n + self.subblock - 1) // self.subblock
                 gap_bits = gaps[:nsub].cpu().numpy()
         return EncodedChunk(payload, lengths.astype(np.int32), sha, gap_bits)
+
+    def _encode_device_codebook_v2(self, data, sha, opt_bits: int, metrics) -> EncodedChunk:
+        """K1 → K4 → K2 with nothing fetched in between, then ONE copy back of
+        the total bits, lengths, gap array and live words (the fused branch of
+        ``TpuChunkCodec._encode_chunk``).  ``opt_bits`` sizes the live words
+        before anything is fetched; the device's total must equal it."""
+        n = data.size
+        nsub = (n + self.subblock - 1) // self.subblock
+        nw = min((opt_bits + 31) // 32, self.out_words)
+        with metrics.timed(Stage.ENCODING, n):
+            x = self._upload(data)
+            lens_t, codes_t = codebook(histogram(x, n))
+            words, total_bits, gaps = encode(x, n, lens_t, codes_t, self.out_words, self.subblock)
+            flat = torch.cat([_as_int32(total_bits), lens_t, _as_int32(gaps[:nsub]),
+                              _as_int32(words[:nw])]).cpu().numpy()
+            tb = int(flat[:2].view(np.int64)[0])
+            lengths = flat[2:258].copy()
+            _check_depth(lengths)
+            if tb != opt_bits:
+                raise RuntimeError(
+                    f"device encode wrote {tb} bits; an optimal code needs {opt_bits}"
+                )
+            gap_bits = flat[258 : 258 + nsub].view(np.uint32).copy()
+            payload = words_to_bytes(flat[258 + nsub :].view(np.uint32), tb)
+        return EncodedChunk(payload, lengths, sha, gap_bits)
+
+    def _encode_device_codebook_v1(self, data, sha, metrics) -> EncodedChunk:
+        """K1 → K4 on the device, one copy back of the histogram and lengths
+        (the depth is checked before K2 runs, and the histogram gives the live
+        word count), K2, then one copy of the total bits and live words (the
+        v1 device branch of ``TpuChunkCodec._encode_chunk``)."""
+        n = data.size
+        with metrics.timed(Stage.FREQUENCY_ANALYSIS, n):
+            x = self._upload(data)
+            hist_t = histogram(x, n)
+        with metrics.timed(Stage.HUFFMAN_TREE_BUILD, n):
+            lens_t, codes_t = codebook(hist_t)
+            hist, lengths = torch.cat([hist_t, lens_t]).cpu().numpy().reshape(2, 256)
+            _check_depth(lengths)
+            opt_bits = int(hist.astype(np.int64) @ lengths.astype(np.int64))
+        with metrics.timed(Stage.ENCODING, n):
+            words, total_bits, _ = encode(x, n, lens_t, codes_t, self.out_words)
+            nw = min((opt_bits + 31) // 32, self.out_words)
+            flat = torch.cat([_as_int32(total_bits), _as_int32(words[:nw])]).cpu().numpy()
+            tb = int(flat[:2].view(np.int64)[0])
+            if tb != opt_bits:
+                raise RuntimeError(
+                    f"device encode wrote {tb} bits; the codebook predicts {opt_bits}"
+                )
+            payload = words_to_bytes(flat[2:].view(np.uint32), tb)
+        return EncodedChunk(payload, lengths.copy(), sha, None)
 
     # -- decode -------------------------------------------------------------
 

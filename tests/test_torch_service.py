@@ -172,11 +172,6 @@ def test_cuda_without_a_gpu_raises(tmp_path):
     assert cli.main(["compress", __file__, str(tmp_path / "x.dcz")]) == 1
 
 
-def test_device_codebook_mode_is_refused():
-    with pytest.raises(ValueError, match="codebook_mode='device'"):
-        GpuCompressionService(cfg(codebook_mode="device"), device="cpu")
-
-
 def test_factory_force_cpu_returns_host_codec():
     with create_compression_service(cfg(), force_cpu=True) as svc:
         assert isinstance(svc, PortCpuCompressionService)
