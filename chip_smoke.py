@@ -7,9 +7,14 @@
    one process a source).
 2. K1 histogram on a 16 MiB chunk with ``valid_len = n - 12345``: kernel ==
    plain PyTorch version == ``np.bincount``; the service's 1 KB probe passes.
-3. K2 encode and K3 decode on 16 MiB ``text`` and ``skewed`` chunks: the
-   kernel equals the plain version bit for bit (live words, total bits, gap
-   array) and the decode returns the input.
+3. K2 encode and K3 decode on 16 MiB ``text``, ``skewed`` and
+   ``compressible`` chunks (the last is 45-byte periodic text, the case where
+   K3's lanes could lock into a wrong phase): the kernel equals the plain
+   version bit for bit (live words, total bits, gap array) and the decode
+   returns the input.  K3 also reports its mean synchronisation rounds a
+   sub-block, and K2 the time of its wrapper's zero-fill alone.  Then a
+   ``text`` chunk with ``valid_len = n - 12345``, which leaves a short last
+   sub-block, through both kernels.
 4. K4 codebook on a few hundred histograms (the corpus's 8 chunks, random
    symbol subsets, heavy ties, one, two and no symbols, Fibonacci histograms
    of depth 20, 32 and 40): lengths equal the plain version's everywhere,
@@ -39,7 +44,11 @@
 
 Kernel, plain and library times are taken with CUDA events after a warm-up,
 cycling through copies of the inputs that together exceed the L2 cache, so
-that each call reads its input cold.  The launch counts of the kernels line
+that each call reads its input cold: back-to-back calls, so a call whose
+wrapper's host work outlasts its device work is timed by the host work.
+K1, K2 and K3 also get ``device_ms``, the device time alone: the same calls
+captured into CUDA graphs and replayed (``tools.ab_codec.graph_ms``), and K2
+the time of its wrapper's zero-fill alone, also replayed.  The launch counts of the kernels line
 come from the run of each kernel's path (phases 5-7), with the counts set to
 0 just before it and read just after; the comparison launches are not in
 them.  ``bound_ms`` is the larger of the bytes each kernel must move over
@@ -101,6 +110,7 @@ def check_histogram(cfg) -> dict:
     from datacomp_tpu_torch.ops import histogram, histogram_reference
     from datacomp_tpu_torch.services import GpuFrequencyService
     from datacomp_tpu_torch.tools import copies, cuda_ms
+    from datacomp_tpu_torch.tools.ab_codec import graph_ms
 
     host = np.random.default_rng(0).integers(0, 256, CHUNK, dtype=np.uint8)
     valid = CHUNK - TAIL
@@ -120,84 +130,130 @@ def check_histogram(cfg) -> dict:
     res = {
         "max_abs_err": max_abs_err(k, r),
         "ms": cuda_ms(lambda t: histogram(t, valid), xs, 24),
+        "device_ms": graph_ms(lambda t: histogram(t, valid), xs, 48),
         "plain_ms": cuda_ms(lambda t: histogram_reference(t, valid), xs, 6),
         **bound(valid + 256 * 4, valid),
         "library_ms": cuda_ms(lambda t: torch.bincount(t[:valid], minlength=256), xs, 6),
     }
-    print(f"K1 histogram 16 MiB random: kernel {res['ms']} ms, plain {res['plain_ms']} "
+    print(f"K1 histogram 16 MiB random: kernel {res['ms']} ms (device time alone "
+          f"{res['device_ms']} ms), plain {res['plain_ms']} "
           f"ms, torch.bincount {res['library_ms']} ms, bound {res['bound_ms']} ms; "
           f"equal to np.bincount; probe ok", flush=True)
     return res
 
 
-def check_codec(kind: str) -> dict:
+def run_codec(kind: str, data: np.ndarray, valid: int) -> dict:
+    """K2 then K3 on one chunk (``valid`` of its bytes), each held to its
+    plain version bit for bit and the decode to the input."""
     from datacomp_tpu_torch.core import huffman
     from datacomp_tpu_torch.ops import (
         build_decode_tables, codebook_to_torch, decode, decode_reference,
         decode_tables_to_torch, encode, encode_reference, payload_to_words,
         words_to_bytes,
     )
-    from datacomp_tpu_torch.tools import copies, cuda_ms
-    from datacomp_tpu_torch.utils.testdata import generate_bytes
 
-    data = np.frombuffer(generate_bytes(kind, CHUNK), np.uint8)
-    hist = np.bincount(data, minlength=256).astype(np.int64)
+    hist = np.bincount(data[:valid], minlength=256).astype(np.int64)
     lengths, codes = huffman.build_codebook(hist, mode="fast", max_len=-1)  # v2 auto cap
     opt_bits = int(hist @ lengths.astype(np.int64))
     out_words = (9 * CHUNK + 31) // 32 + 2
     x = torch.from_numpy(data.copy()).cuda()
     lt, ct = codebook_to_torch(lengths, codes, "cuda")
 
-    kw, ktb, kg = encode(x, CHUNK, lt, ct, out_words, SUBBLOCK)
-    rw, rtb, rg = encode_reference(x, CHUNK, lt, ct, out_words, SUBBLOCK)
+    kw, ktb, kg = encode(x, valid, lt, ct, out_words, SUBBLOCK)
+    rw, rtb, rg = encode_reference(x, valid, lt, ct, out_words, SUBBLOCK)
     tb = int(ktb)
     live = (tb + 31) // 32
     if not tb == int(rtb) == opt_bits:
         fail(f"K2 {kind}: total bits kernel {tb}, plain {int(rtb)}, host {opt_bits}")
     if not torch.equal(kw[:live].cpu(), rw[:live].cpu()) or not torch.equal(kg.cpu(), rg.cpu()):
         fail(f"K2 {kind}: kernel words or gaps differ from the plain version")
-    enc_err = max(max_abs_err(kw, rw), max_abs_err(kg, rg))
 
     payload = words_to_bytes(kw[:live].cpu().numpy(), tb)
     words = torch.from_numpy(payload_to_words(payload)).cuda()
-    nsub = (CHUNK + SUBBLOCK - 1) // SUBBLOCK
+    nsub = (valid + SUBBLOCK - 1) // SUBBLOCK
     gaps = kg[:nsub].contiguous()
     tables = decode_tables_to_torch(*build_decode_tables(lengths), "cuda")
-    kd = decode(words, gaps, *tables, SUBBLOCK, CHUNK)
-    rd = decode_reference(words, gaps, *tables, SUBBLOCK, CHUNK)
-    if not (np.array_equal(kd.cpu().numpy(), data) and np.array_equal(rd.cpu().numpy(), data)):
+    stats = torch.zeros(2, dtype=torch.int64, device="cuda")
+    kd = decode(words, gaps, *tables, SUBBLOCK, valid, stats)
+    rd = decode_reference(words, gaps, *tables, SUBBLOCK, valid)
+    if not (np.array_equal(kd.cpu().numpy(), data[:valid])
+            and np.array_equal(rd.cpu().numpy(), data[:valid])):
         fail(f"K3 {kind}: decode does not return the input")
+    subs, rounds = stats.tolist()
+    if subs != nsub:
+        fail(f"K3 {kind}: {subs} sub-blocks counted, {nsub} expected")
+    return {"x": x, "lt": lt, "ct": ct, "out_words": out_words, "live": live, "nsub": nsub,
+            "words": words, "gaps": gaps, "tables": tables, "depth": int(lengths.max()),
+            "bits_per_byte": tb / valid, "sync_rounds": rounds / nsub,
+            "enc_err": max(max_abs_err(kw, rw), max_abs_err(kg, rg)),
+            "dec_err": max_abs_err(kd, rd)}
 
-    xs, ws = copies(x), copies(words, gaps)
+
+def check_codec(kind: str) -> dict:
+    from datacomp_tpu_torch.ops import (
+        _build, decode, decode_reference, encode, encode_reference,
+    )
+    from datacomp_tpu_torch.tools import copies, cuda_ms
+    from datacomp_tpu_torch.tools.ab_codec import graph_ms
+    from datacomp_tpu_torch.utils.testdata import generate_bytes
+
+    c = run_codec(kind, np.frombuffer(generate_bytes(kind, CHUNK), np.uint8), CHUNK)
+    lt, ct, out_words, tables, nsub = c["lt"], c["ct"], c["out_words"], c["tables"], c["nsub"]
+    xs, ws = copies(c["x"]), copies(c["words"], c["gaps"])
     table_bytes = sum(t.numel() * t.element_size() for t in tables)
+    # the wrapper's one zero-fill (tile ticket, total, tile statuses, words)
+    tiles = -(-CHUNK // _build.library().dcz_encode_tile_symbols())
+    zeroed = 2 * (2 + tiles) + out_words
     res = {
-        "depth": int(lengths.max()),
-        "bits_per_byte": tb / CHUNK,
+        "depth": c["depth"],
+        "bits_per_byte": c["bits_per_byte"],
         "encode": {
-            "max_abs_err": enc_err,
+            "max_abs_err": c["enc_err"],
             "ms": cuda_ms(lambda t: encode(t, CHUNK, lt, ct, out_words, SUBBLOCK), xs, 24),
+            "device_ms": graph_ms(
+                lambda t: encode(t, CHUNK, lt, ct, out_words, SUBBLOCK), xs, 48),
             "plain_ms": cuda_ms(
                 lambda t: encode_reference(t, CHUNK, lt, ct, out_words, SUBBLOCK), xs, 3),
             # the chunk and tables in; the live words and the gap array out
-            **bound(CHUNK + 256 * 8 + 4 * live + 4 * nsub, CHUNK),
+            **bound(CHUNK + 256 * 8 + 4 * c["live"] + 4 * nsub, CHUNK),
             "library_ms": None,
+            "zero_fill_ms": graph_ms(
+                lambda: torch.zeros(zeroed, dtype=torch.int32, device="cuda"), [()], 48),
         },
         "decode": {
-            "max_abs_err": max_abs_err(kd, rd),
-            "ms": cuda_ms(lambda w, g: decode(w, g, *tables, SUBBLOCK, CHUNK), ws, 12),
+            "max_abs_err": c["dec_err"],
+            "ms": cuda_ms(lambda w, g: decode(w, g, *tables, SUBBLOCK, CHUNK), ws, 24),
+            "device_ms": graph_ms(lambda w, g: decode(w, g, *tables, SUBBLOCK, CHUNK), ws, 48),
             "plain_ms": cuda_ms(
                 lambda w, g: decode_reference(w, g, *tables, SUBBLOCK, CHUNK), ws, 1),
             # the stream, gap array and tables in; the chunk out
-            **bound(4 * words.numel() + 4 * nsub + table_bytes + CHUNK, CHUNK),
+            **bound(4 * c["words"].numel() + 4 * nsub + table_bytes + CHUNK, CHUNK),
             "library_ms": None,
         },
+        "sync_rounds": c["sync_rounds"],
     }
     print(f"K2/K3 16 MiB {kind} (depth {res['depth']}, {res['bits_per_byte']} "
-          f"bits/byte): encode kernel {res['encode']['ms']} ms, plain "
-          f"{res['encode']['plain_ms']} ms, bound {res['encode']['bound_ms']} ms; "
-          f"decode kernel {res['decode']['ms']} ms, plain {res['decode']['plain_ms']} "
-          f"ms, bound {res['decode']['bound_ms']} ms; bit-exact, round trip ok", flush=True)
+          f"bits/byte): encode kernel {res['encode']['ms']} ms (device time alone "
+          f"{res['encode']['device_ms']} ms, of it the zero-fill "
+          f"{res['encode']['zero_fill_ms']} ms), plain {res['encode']['plain_ms']} ms, "
+          f"bound {res['encode']['bound_ms']} ms; decode kernel {res['decode']['ms']} ms "
+          f"(device time alone {res['decode']['device_ms']} ms), plain "
+          f"{res['decode']['plain_ms']} ms, bound {res['decode']['bound_ms']} ms, "
+          f"{res['sync_rounds']} sync rounds a sub-block; bit-exact, round trip ok",
+          flush=True)
     return res
+
+
+def check_short_tail() -> None:
+    """A text chunk whose valid length leaves a short last sub-block."""
+    from datacomp_tpu_torch.utils.testdata import generate_bytes
+
+    valid = CHUNK - TAIL
+    c = run_codec("text, short tail", np.frombuffer(generate_bytes("text", CHUNK), np.uint8),
+                  valid)
+    print(f"K2/K3 16 MiB text, valid_len = n - {TAIL} (last sub-block "
+          f"{valid - (c['nsub'] - 1) * SUBBLOCK} symbols): bit-exact, round trip ok, "
+          f"{c['sync_rounds']} sync rounds a sub-block", flush=True)
 
 
 def codebook_histograms(corpus: np.ndarray) -> list:
@@ -496,7 +552,8 @@ def main() -> int:
           f"({'ok' if built else f'numpy fallback: {native.build_error()}'})", flush=True)
 
     hist = check_histogram(load_config(compression={"chunk_size_mb": 16}))
-    codec = {kind: check_codec(kind) for kind in ("text", "skewed")}
+    codec = {kind: check_codec(kind) for kind in ("text", "skewed", "compressible")}
+    check_short_tail()
     with tempfile.TemporaryDirectory() as d:
         src = os.path.join(d, "bench.bin")
         write_corpus(src)
@@ -530,7 +587,8 @@ def main() -> int:
          "launches": fast["launches"]["encode"], **codec["text"]["encode"]},
         {"name": "decode", "route": "cuda", "source": source.format("decode"),
          "replaces": "datacomp_tpu/ops/decode.py:133",
-         "launches": fast["launches"]["decode"], **codec["text"]["decode"]},
+         "launches": fast["launches"]["decode"], **codec["text"]["decode"],
+         "sync_rounds": {kind: r["sync_rounds"] for kind, r in codec.items()}},
         {"name": "codebook", "route": "cuda", "source": source.format("codebook"),
          "replaces": "datacomp_tpu/ops/codebook.py:37",
          "launches": dev2["launches"]["codebook"], **cbook},

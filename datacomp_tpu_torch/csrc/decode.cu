@@ -8,97 +8,443 @@
 // to amortise the one gather it keeps.  On Hopper the tables sit in shared
 // memory and a refill is an ordinary load.
 //
-// What bounds it on the H100: latency, not bandwidth.  Each thread decodes
-// its sub-block serially, one dependent chain per symbol (peek, 16 compares,
-// a table read, a shift), with a device-memory load every 32 bits.  A 16 MiB
-// chunk has only about 4.2k sub-blocks of 4032 symbols, so one launch runs
-// about 4.2k threads, some 130 warps, about one per SM: most of the card
-// stays idle.  Batching several chunks into one launch is a later step.
+// What bounds it on the H100: the instructions of the decode steps, not
+// bytes.  A 16 MiB chunk has only about 4.2k sub-blocks: one thread a
+// sub-block would be about one warp an SM, each thread a chain of 4032
+// dependent steps.  So a WARP takes a sub-block and its 32 lanes split the
+// sub-block's bit range: the chain is about subblock / 32 symbols a lane (126
+// at the default), twice (a counting pass and a writing pass), plus the
+// synchronisation rounds, all from shared memory, and some 20 warps an SM
+// share the issue slots; each step costs a few tens of instructions (the
+// window, the table read, the refill and the bitmap's bookkeeping, with
+// divergent branches).  The worst case is a stream that never
+// resynchronises: about 31 rounds of a whole segment, the serial depth of one
+// thread a sub-block again, but from shared memory.
 //
-// Design: one thread per sub-block, in blocks of 32 threads so the warps
-// spread over all SMs; a 64-bit bit buffer (valid bits at the top) refilled
-// one 32-bit word at a time with bounds-checked reads; limits, adj and sym
-// in shared memory.  Per symbol:
-//   win = the next 16 bits;  len = 1 + #(limits <= win), at most 16;
-//   symbol = sym[(win >> (16 - len)) + adj[len - 1]].
-// Codes must be at most 16 bits (the wrapper's caller routes deeper
-// codebooks to the host decoder).  A corrupt stream decodes to garbage, never
-// out of bounds; the chunk's SHA-256 check catches it.
+// Design (after Weissenberger & Schmidt, "Massively Parallel Huffman Decoding
+// on GPUs", ICPP 2018):
+//   * Span.  Sub-block i covers bits [lo, hi): lo = gaps[i], hi = gaps[i+1]
+//     (the stream's end for the last), both clamped into the stream, hi >= lo,
+//     and hi <= lo + maxlen * count (count = its symbols, maxlen = the deepest
+//     length in use), which a valid sub-block always meets.
+//   * Lanes.  Lane k owns the codewords that START in [lo + k*seg,
+//     lo + (k+1)*seg), seg = ceil(span / 32) rounded up to a multiple of
+//     lcm(32, g), g the gcd of the code lengths in use (a length l is in use
+//     where limits[l-1] != limits[l-2]).  Every true codeword start lies a
+//     multiple of g past lo, so with a fixed-length code every lane's start
+//     is exact; the multiple of 32 gives each lane whole words of the bitmap
+//     below.
+//   * Pass A.  Each lane decodes from its start s_k (lane 0's, lo, is a true
+//     codeword start), counting the codewords that start in its range, and
+//     records its exit q_k (the first codeword start past its range) and its
+//     count c_k; it marks each codeword start it visits in a per-warp bitmap.
+//   * Rounds.  Lane k+1 takes q_k (__shfl_up_sync); a lane whose start
+//     changed decodes again, until __any_sync sees no change (lanes whose
+//     range lies past the span never count as changed).  After round r
+//     lanes 0..r are exact, so there are at most 31 rounds.  A lane stops
+//     early when its new parse lands on a start its previous parse visited:
+//     from there the two parses agree, so its exit stays and its count is
+//     the new prefix plus the previous parse's starts from there on.
+//   * Output.  An exclusive warp scan of c_k gives each lane's first output
+//     index; each lane decodes its symbols once more and writes those below
+//     count into a staging buffer in shared memory (the bitmap's storage),
+//     zero-filling what a corrupt stream leaves short; the warp then copies
+//     the sub-block out with 16-byte stores (byte stores where the sub-block
+//     does not start 16-byte aligned, which a subblock that is a multiple of
+//     16 never does).
+//   * Stream in shared memory.  The warp first copies the sub-block's words
+//     [lo/32, hi/32 + 3) into its buffer with coalesced loads.
+//   * Table.  Each block builds a direct table of 2^T uint16 entries
+//     (length << 8 | symbol; 0 for a code longer than T bits), T =
+//     min(12, maxlen), from limits/adj/sym: a code of at most T bits resolves
+//     with one shared-memory read.  Longer codes take the 16 compares against
+//     `limits`, held in registers, as the plain version does; the table's
+//     entries equal that formula for every window, so the two agree on any
+//     stream.
+//   * Routes.  A sub-block whose buffer needs at most kWarpWords (1024) words
+//     and whose count fits the staging buffer (4096 bytes) takes the staged
+//     route above: at the default 4032 symbols, every sub-block of at most
+//     about 8.1 bits a symbol, which covers any chunk the codec does not store
+//     raw unless its rate varies a lot within it.  Any other (a denser
+//     sub-block, a larger subblock, or a span stretched by a corrupt gap
+//     array) takes the direct route in the same kernel: the same lanes and
+//     rounds, reading the stream from device memory with bounds checks,
+//     without the bitmap (a round re-decodes the lane's whole range) and
+//     writing bytes straight to `out`.  Buffers sized for the worst case of
+//     4032 16-bit codes (2048 words) hold fewer warps an SM and ran slower
+//     on the H100 (PERF.md).
+//   * Grid.  Persistent: as many blocks as fit on the card at once, each
+//     warp walking sub-blocks i, i + warps in the grid, ...; so each block
+//     builds its table once.
+//   * Statistics.  With `stats` (int64[2]) given, each warp adds its
+//     sub-blocks and its sync rounds with one atomicAdd each.
+// Codes must be at most 16 bits (the wrapper's caller routes deeper codebooks
+// to the host decoder).  A corrupt stream decodes to garbage, never out of
+// bounds, and always yields n_out bytes; the chunk's SHA-256 catches it.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kThreads = 32;
-constexpr int kTableBits = 16;
+// DCZ_K3_WARPS and DCZ_K3_WARP_WORDS are build-time knobs for the A/B tool
+// (datacomp_tpu_torch/tools/ab_codec.py); the codec builds the defaults.
+#ifndef DCZ_K3_WARPS
+#define DCZ_K3_WARPS 4
+#endif
+#ifndef DCZ_K3_WARP_WORDS
+#define DCZ_K3_WARP_WORDS 1024
+#endif
+
+constexpr unsigned kFull = 0xffffffffu;
+constexpr int kWarps = DCZ_K3_WARPS;  // warps a block
+constexpr int kThreads = 32 * kWarps;
+constexpr int kCodeBits = 16;        // the deepest code (TABLE_BITS)
+constexpr int kMaxDirectBits = 12;   // the direct table's largest T
+constexpr int kWarpWords = DCZ_K3_WARP_WORDS;  // a warp's stream buffer and bitmap, in words
+
+struct __align__(16) Smem {
+  uint32_t bitmap[kWarps][kWarpWords];  // also the output staging buffer
+  uint32_t stream[kWarps][kWarpWords];
+  uint16_t table[1 << kMaxDirectBits];
+  int adj[kCodeBits];
+  uint8_t sym[256];
+};
+
+__device__ __forceinline__ int gcd(int a, int b) {
+  while (b) {
+    const int t = a % b;
+    a = b;
+    b = t;
+  }
+  return a;
+}
+
+// The 16 canonical limits as scalars: an array, once indexed where the
+// compiler cannot resolve the index, would move the whole decoder to local
+// memory.
+struct Limits {
+  int l0, l1, l2, l3, l4, l5, l6, l7, l8, l9, l10, l11, l12, l13, l14, l15;
+  // how many limits are at most w: the code length less one
+  __device__ __forceinline__ int count_le(int w) const {
+    return (l0 <= w) + (l1 <= w) + (l2 <= w) + (l3 <= w) + (l4 <= w) + (l5 <= w) +
+           (l6 <= w) + (l7 <= w) + (l8 <= w) + (l9 <= w) + (l10 <= w) + (l11 <= w) +
+           (l12 <= w) + (l13 <= w) + (l14 <= w) + (l15 <= w);
+  }
+};
+
+__device__ __forceinline__ Limits load_limits(const int* l) {
+  return {l[0], l[1], l[2], l[3], l[4], l[5], l[6], l[7],
+          l[8], l[9], l[10], l[11], l[12], l[13], l[14], l[15]};
+}
+
+// One canonical decode step on a left-aligned 16-bit window: the plain
+// version's formula, through the direct table where the code is short.
+struct Decoder {
+  const uint16_t* table;
+  const int* adj;
+  const uint8_t* sym;
+  int shift;  // 16 - T
+  Limits lim;
+
+  __device__ __forceinline__ int decode(uint32_t win, int* s) const {
+    const uint32_t e = table[win >> shift];
+    if (e) {
+      *s = e & 0xFF;
+      return (int)(e >> 8);
+    }
+    int len = 1 + lim.count_le((int)win);
+    len = len < kCodeBits ? len : kCodeBits;
+    int idx = (int)(win >> (kCodeBits - len)) + adj[len - 1];
+    idx = idx < 0 ? 0 : (idx > 255 ? 255 : idx);
+    *s = sym[idx];
+    return len;
+  }
+};
+
+// A stream and the type of a bit position in it.  The staged route counts
+// bits from the first staged word in 32-bit integers; the direct route
+// counts them from the stream's start.
+struct SmemStream {  // words staged in shared memory
+  using Pos = int;
+  const uint32_t* buf;
+  __device__ __forceinline__ uint32_t word(int j) const { return buf[j]; }
+};
+
+struct GlobalStream {  // the stream in device memory, zeros past its end
+  using Pos = int64_t;
+  const uint32_t* words;
+  int64_t n;
+  __device__ __forceinline__ uint32_t word(int64_t j) const {
+    return j < n ? __ldg(words + j) : 0u;
+  }
+};
+
+// A bit position with its two words in registers: a step of at most 16 bits
+// crosses at most one word boundary, and the word it then loads is needed
+// one step later at the earliest.
+template <class Src>
+struct Reader {
+  using Pos = typename Src::Pos;
+  Src src;
+  Pos p, wi;
+  uint32_t w0, w1;
+  __device__ __forceinline__ Reader(Src s, Pos pos)
+      : src(s), p(pos), wi(pos >> 5), w0(s.word(pos >> 5)), w1(s.word((pos >> 5) + 1)) {}
+  __device__ __forceinline__ uint32_t window() const {
+    return __funnelshift_l(w1, w0, (uint32_t)p & 31) >> 16;
+  }
+  __device__ __forceinline__ void advance(int len) {
+    p += len;
+    if ((p >> 5) != wi) {
+      ++wi;
+      w0 = w1;
+      w1 = src.word(wi + 1);
+    }
+  }
+};
+
+template <class Pos>
+struct Pass {
+  Pos q;  // exit: the first codeword start at or past the lane's range
+  int c;  // codewords that start in the lane's range
+};
+
+// Decode from s while the position is below `end`.  With the bitmap, the
+// lane's words [bw0, bw1) end up holding this parse's codeword starts; with
+// `check`, the walk stops where it meets the previous parse (whose exit was
+// q_prev and count c_prev): the previous parse's starts from there on are
+// c_prev less those in the words this walk overwrote and those below the
+// meeting point in its word.  Src and Decoder travel by value, so that they
+// stay in registers.
+template <class Src, bool kBitmap, class Pos = typename Src::Pos>
+__device__ __forceinline__ Pass<Pos> count_pass(Src src, Decoder dec, Pos s, Pos end, Pos lo,
+                                                uint32_t* bm, int bw0, int bw1, bool check,
+                                                Pos q_prev, int c_prev) {
+  int c = 0;
+  int cw = bw0;  // the bitmap word being assembled
+  uint32_t cb = 0;
+  int passed = 0;  // the previous parse's starts in the words overwritten so far
+  if (s < end) {
+    Reader<Src> r(src, s);
+    do {
+      if (kBitmap) {
+        const int b = (int)(r.p - lo);
+        const int bwi = b >> 5;
+        const uint32_t m = 1u << (b & 31);
+        for (; cw < bwi; ++cw) {
+          if (check) passed += __popc(bm[cw]);
+          bm[cw] = cb;
+          cb = 0;
+        }
+        if (check) {
+          const uint32_t old = bm[bwi];
+          if (old & m) {  // the previous parse started a codeword here
+            const uint32_t keep = old & ~(m - 1u);
+            bm[bwi] = keep | cb;
+            return {q_prev, c + c_prev - passed - __popc(old & (m - 1u))};
+          }
+        }
+        cb |= m;
+      }
+      int sym;
+      r.advance(dec.decode(r.window(), &sym));
+      ++c;
+    } while (r.p < end);
+    s = r.p;
+  }
+  if (kBitmap) {
+    for (; cw < bw1; ++cw) {
+      bm[cw] = cb;
+      cb = 0;
+    }
+  }
+  return {s, c};
+}
+
+// One sub-block by one warp: pass A, the rounds, the scan and the writing
+// pass into dst[0, count).  bm is the warp's bitmap (staged route only).
+// Returns the rounds taken.
+template <class Src, bool kStaged, class Pos = typename Src::Pos>
+__device__ __forceinline__ int decode_subblock(Src src, Decoder dec, Pos lo, Pos hi, Pos seg,
+                                               int count, uint32_t* bm, uint8_t* dst) {
+  const int lane = threadIdx.x & 31;
+  const Pos b = lo + lane * seg;
+  const Pos e = b + seg < hi ? b + seg : hi;
+  const int bw0 = (int)((lane * seg) >> 5);
+  const int bw1 = e > b ? (int)((e - lo + 31) >> 5) : bw0;
+
+  Pos s = b;
+  Pass<Pos> a = count_pass<Src, kStaged>(src, dec, s, e, lo, bm, bw0, bw1, false, Pos(0), 0);
+  int rounds = 0;
+  for (int r = 0; r < 32; ++r) {  // at most 31 rounds change a start
+    Pos s_new = __shfl_up_sync(kFull, a.q, 1);
+    if (lane == 0) s_new = s;
+    const bool changed = s_new != s && e > b;  // a lane past the span decodes nothing
+    if (!__any_sync(kFull, changed)) break;
+    ++rounds;
+    if (changed) {
+      s = s_new;
+      a = count_pass<Src, kStaged>(src, dec, s, e, lo, bm, bw0, bw1, true, a.q, a.c);
+    }
+  }
+
+  int off = a.c;  // inclusive scan of the counts
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int y = __shfl_up_sync(kFull, off, o);
+    if (lane >= o) off += y;
+  }
+  const int total = __shfl_sync(kFull, off, 31);
+  off -= a.c;
+  __syncwarp();  // the bitmap is done with: dst may be its storage
+
+  const int n = a.c < count - off ? a.c : count - off;
+  if (n > 0) {
+    Reader<Src> r(src, s);
+    for (int j = 0; j < n; ++j) {
+      int sym;
+      const int len = dec.decode(r.window(), &sym);
+      dst[off + j] = (uint8_t)sym;
+      r.advance(len);
+    }
+  }
+  for (int j = total + lane; j < count; j += 32) dst[j] = 0;  // a short (corrupt) stream
+  __syncwarp();
+  return rounds;
+}
 
 __global__ void __launch_bounds__(kThreads)
 decode_kernel(const uint32_t* __restrict__ words, int64_t nwords,
               const uint32_t* __restrict__ gaps, int64_t nsub,
               const int* __restrict__ limits, const int* __restrict__ adj,
               const int* __restrict__ sym, int subblock, int64_t n_out,
-              uint8_t* __restrict__ out) {
-  __shared__ int lim_s[kTableBits];
-  __shared__ int adj_s[kTableBits];
-  __shared__ int sym_s[256];
-  for (int i = threadIdx.x; i < kTableBits; i += kThreads) {
-    lim_s[i] = limits[i];
-    adj_s[i] = adj[i];
+              uint8_t* __restrict__ out, unsigned long long* __restrict__ stats) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  Smem& sm = *reinterpret_cast<Smem*>(smem_raw);
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+
+  Decoder dec;
+  dec.lim = load_limits(limits);
+  int maxlen = 0, g = 0, prev = 0;
+  for (int l = 0; l < kCodeBits; ++l) {
+    const int v = limits[l];
+    if (v != prev) {  // length l + 1 is in use
+      maxlen = l + 1;
+      g = gcd(l + 1, g);
+    }
+    prev = v;
   }
-  for (int i = threadIdx.x; i < 256; i += kThreads) sym_s[i] = sym[i];
+  maxlen = maxlen ? maxlen : 1;
+  g = g ? g : 1;
+  const int tbits = maxlen < kMaxDirectBits ? maxlen : kMaxDirectBits;
+  dec.shift = kCodeBits - tbits;
+  dec.table = sm.table;
+  dec.adj = sm.adj;
+  dec.sym = sm.sym;
+
+  for (int i = threadIdx.x; i < kCodeBits; i += kThreads) sm.adj[i] = adj[i];
+  for (int i = threadIdx.x; i < 256; i += kThreads) sm.sym[i] = (uint8_t)sym[i];
+  const int tlim = limits[tbits - 1];
+  for (int v = threadIdx.x; v < (1 << tbits); v += kThreads) {
+    const int w = v << dec.shift;  // the window's low bits do not matter below T bits
+    uint16_t entry = 0;
+    if (w < tlim) {
+      const int len = 1 + dec.lim.count_le(w);
+      int idx = (w >> (kCodeBits - len)) + adj[len - 1];
+      idx = idx < 0 ? 0 : (idx > 255 ? 255 : idx);
+      entry = (uint16_t)((len << 8) | (sym[idx] & 0xFF));
+    }
+    sm.table[v] = entry;
+  }
   __syncthreads();
 
-  const int64_t i = (int64_t)blockIdx.x * kThreads + threadIdx.x;
-  if (i >= nsub) return;
-  const int64_t first = i * subblock;
-  const int64_t count = n_out - first < subblock ? n_out - first : subblock;
+  const int unit = 32 * g / gcd(32, g);  // lcm(32, g)
+  const int64_t stream_bits = 32 * nwords;
+  uint32_t* buf = sm.stream[warp];
+  uint32_t* bm = sm.bitmap[warp];
+  uint8_t* stage = reinterpret_cast<uint8_t*>(bm);
+  unsigned long long subs = 0, rounds = 0;
 
-  auto word = [&](int64_t j) -> uint64_t {
-    return j < nwords ? words[j] : 0u;
-  };
-  const int64_t pos = gaps[i];
-  int64_t wi = pos >> 5;
-  const int bi = (int)(pos & 31);
-  uint64_t buf = ((word(wi) << 32) | word(wi + 1)) << bi;
-  int nb = 64 - bi;  // valid bits at the top of buf, 33..64
-  wi += 2;
+  for (int64_t i = (int64_t)blockIdx.x * kWarps + warp; i < nsub;
+       i += (int64_t)gridDim.x * kWarps) {
+    const int64_t first = i * subblock;
+    if (first >= n_out) break;
+    const int count = (int)(n_out - first < subblock ? n_out - first : subblock);
+    int64_t lo = gaps[i];
+    lo = lo < stream_bits ? lo : stream_bits;
+    int64_t hi = i + 1 < nsub ? (int64_t)gaps[i + 1] : stream_bits;
+    hi = hi < lo ? lo : (hi > stream_bits ? stream_bits : hi);
+    hi = hi < lo + (int64_t)maxlen * count ? hi : lo + (int64_t)maxlen * count;
+    const int64_t per_lane = (hi - lo + 31) / 32;
+    const int64_t seg = (per_lane > 0 ? (per_lane + unit - 1) / unit : 1) * unit;
+    const int64_t base = lo >> 5;
+    const int64_t nbuf = (hi >> 5) + 3 - base;
 
-  uint8_t* dst = out + first;
-  for (int64_t j = 0; j < count; ++j) {
-    if (nb <= 32) {  // keep more than 32 valid bits: a 16-bit peek always fits
-      buf |= word(wi) << (32 - nb);
-      nb += 32;
-      ++wi;
+    int r;
+    if (nbuf <= kWarpWords && count <= 4 * kWarpWords) {
+#pragma unroll 8
+      for (int j = lane; j < nbuf; j += 32) {
+        buf[j] = base + j < nwords ? __ldg(words + base + j) : 0u;
+      }
+      __syncwarp();
+      // positions count from the first staged word
+      r = decode_subblock<SmemStream, true>(SmemStream{buf}, dec, (int)(lo - (base << 5)),
+                                            (int)(hi - (base << 5)), (int)seg, count, bm,
+                                            stage);
+      uint8_t* o = out + first;
+      if ((reinterpret_cast<uintptr_t>(o) & 15) == 0) {
+        const int nv = count >> 4;
+        for (int j = lane; j < nv; j += 32) {
+          reinterpret_cast<uint4*>(o)[j] = reinterpret_cast<const uint4*>(stage)[j];
+        }
+        for (int j = (nv << 4) + lane; j < count; j += 32) o[j] = stage[j];
+      } else {
+        for (int j = lane; j < count; j += 32) o[j] = stage[j];
+      }
+      __syncwarp();  // the buffers are free for the next sub-block
+    } else {
+      r = decode_subblock<GlobalStream, false>(GlobalStream{words, nwords}, dec, lo, hi, seg,
+                                               count, nullptr, out + first);
     }
-    const int win = (int)(buf >> (64 - kTableBits));
-    int len = 1;
-#pragma unroll
-    for (int l = 0; l < kTableBits; ++l) len += lim_s[l] <= win;
-    len = len < kTableBits ? len : kTableBits;
-    int idx = (win >> (kTableBits - len)) + adj_s[len - 1];
-    idx = idx < 0 ? 0 : (idx > 255 ? 255 : idx);
-    dst[j] = (uint8_t)sym_s[idx];
-    buf <<= len;
-    nb -= len;
+    ++subs;
+    rounds += r;
+  }
+  if (stats && lane == 0 && subs) {
+    atomicAdd(&stats[0], subs);
+    atomicAdd(&stats[1], rounds);
   }
 }
 
 }  // namespace
 
 // words: uint32[nwords]; gaps: uint32[nsub]; limits, adj: int32[16];
-// sym: int32[256]; out: uint8[n_out], n_out <= nsub * subblock.
+// sym: int32[256]; out: uint8[n_out], n_out <= nsub * subblock; stats:
+// int64[2] (sub-blocks decoded, sync rounds taken; added to) or null.
 extern "C" int dcz_decode(const void* words, int64_t nwords, const void* gaps,
                           int64_t nsub, const void* limits, const void* adj,
                           const void* sym, int subblock, int64_t n_out, void* out,
-                          void* stream) {
-  const int64_t blocks = (nsub + kThreads - 1) / kThreads;
-  if (blocks > 0 && n_out > 0) {
-    decode_kernel<<<(unsigned)blocks, kThreads, 0, (cudaStream_t)stream>>>(
-        static_cast<const uint32_t*>(words), nwords,
-        static_cast<const uint32_t*>(gaps), nsub, static_cast<const int*>(limits),
-        static_cast<const int*>(adj), static_cast<const int*>(sym), subblock, n_out,
-        static_cast<uint8_t*>(out));
+                          void* stats, void* stream) {
+  const int64_t live = (n_out + subblock - 1) / subblock;  // sub-blocks with output
+  const int64_t need = ((live < nsub ? live : nsub) + kWarps - 1) / kWarps;
+  if (need <= 0) return (int)cudaGetLastError();
+  const int smem = (int)sizeof(Smem);
+  cudaError_t err = cudaFuncSetAttribute(decode_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  int dev = 0, sms = 0, per_sm = 0;
+  if (err == cudaSuccess) err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, decode_kernel, kThreads, smem);
   }
+  if (err != cudaSuccess) return (int)err;
+  const int64_t resident = (int64_t)(per_sm > 0 ? per_sm : 1) * sms;
+  const int64_t blocks = need < resident ? need : resident;
+  decode_kernel<<<(unsigned)blocks, kThreads, smem, (cudaStream_t)stream>>>(
+      static_cast<const uint32_t*>(words), nwords, static_cast<const uint32_t*>(gaps), nsub,
+      static_cast<const int*>(limits), static_cast<const int*>(adj),
+      static_cast<const int*>(sym), subblock, n_out, static_cast<uint8_t*>(out),
+      static_cast<unsigned long long*>(stats));
   return (int)cudaGetLastError();
 }

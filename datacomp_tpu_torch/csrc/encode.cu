@@ -7,49 +7,74 @@
 // matmul table lookups, a five-level bitstream merge tree, a matmul prefix
 // sum and an ownership scatter.  None of that is carried over: Hopper reads
 // a 256-entry table from shared memory in one instruction and has atomics
-// on device memory.
+// on device and shared memory.
 //
-// What bounds it on the H100: per symbol, one shared-memory lookup, a step
-// of a block-wide scan and an OR into the output; the bytes moved are small
-// (n in, about n*L/8 out).  The atomics on device memory are the cost to
-// keep low.
+// What bounds it on the H100: not the bytes (the chunk read once and about
+// n*L/8 bytes of live words written once would take some 8 us at 16 MiB),
+// but instructions and latency: most of all the per-thread packing loop (a
+// serial chain of shifts and ORs a symbol), then each tile's load, scan and
+// barriers, and least the tiles' look-back chain and the ticket.  The
+// wrapper's zero-fill of the word capacity (9n/32 words) is the only other
+// device operation of a call.  What the design does: one launch and one read
+// of the chunk, and no device-memory atomics inside a tile's words.
 //
-// Design: tiles of kTile = 4096 symbols, 256 threads x 16 consecutive
-// symbols, each thread's 16 bytes read with one 16-byte load.  Two launches:
-//   1. dcz_encode_block_sums: each tile's sum of code lengths;
-//   2. (the wrapper takes the int64 exclusive cumsum of those sums on the
-//      stream: each tile's start bit) dcz_encode_write: a block-local
-//      exclusive scan of the per-thread sums gives each thread its start bit;
-//      the thread then walks its 16 symbols, ORs each left-aligned code
-//      v = (u64)code << (64 - L - (off & 31)) into a register that holds the
-//      current output word, and issues an atomicOr only when it moves on to
-//      another word.  So there is about one atomic per 32 output bits, and
-//      the atomics resolve the words that two threads share.
-// Writes at or beyond out_words are dropped (the wrapper's caller raises
-// when the total exceeds the capacity).  Codes must be at most 32 bits; a
-// longer one still moves the bit offsets by its length and stays within the
-// bounds checks, but its bits are wrong.
+// Design: one launch, a single-pass scan with decoupled look-back over tiles
+// of kTile = 8192 symbols (256 threads x 32 consecutive symbols, each
+// thread's 32 bytes read with two 16-byte loads):
+//   1. A block takes its tile index from an atomic ticket, so that every
+//      tile before it is already running.  A block-wide scan of the code
+//      lengths gives each thread its bit offset inside the tile and the
+//      tile's sum.
+//   2. Warp 0 publishes the tile's sum (flag A) in a status array the wrapper
+//      zeroes, then looks back over its 32 nearest predecessors at a time,
+//      adding sums until it meets an inclusive prefix (flag P), and publishes
+//      its own inclusive prefix.  The last tile writes total_bits.
+//   3. Each thread packs its codes into the tile's words in shared memory
+//      through a 64-bit accumulator: a finished word that lies inside the
+//      thread's bit range is a plain store; only its first and last words,
+//      which it may share with its neighbours, take a shared-memory atomicOr.
+//   4. The block stores the words it alone owns with coalesced plain
+//      stores; only its first and last words, which it may share with its
+//      neighbouring tiles, go to device memory by atomicOr: at most 2 device
+//      atomics a tile.
+// Gap bits are written by the thread that holds every `subblock`-th symbol.
+// Writes at or beyond out_words are dropped (the wrapper's caller raises when
+// the total exceeds the capacity).  Codes must be at most 32 bits; a longer
+// one still moves the bit offsets by its length and writes nothing, so the
+// total and the gap bits are right and every access stays in bounds, but the
+// stream's bits are wrong (and words past the tile's shared-memory buffer
+// stay zero).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
+// DCZ_K2_SYMS, the symbols a thread (16 or 32), is a build-time knob for the
+// A/B tool (datacomp_tpu_torch/tools/ab_codec.py); the codec builds 32.
+#ifndef DCZ_K2_SYMS
+#define DCZ_K2_SYMS 32
+#endif
+
+constexpr unsigned kFull = 0xffffffffu;
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kSymsPerThread = 16;
+constexpr int kSymsPerThread = DCZ_K2_SYMS;
+constexpr int kVecs = kSymsPerThread / 16;  // 16-byte loads a thread
 constexpr int kTile = kThreads * kSymsPerThread;
+// a tile's words: 32-bit codes at most, plus the start's offset in its word
+constexpr int kTileWords = kTile + 2;
 
-__device__ __forceinline__ int byte_at(const uint4& q, int k) {
-  const uint32_t w = k < 4 ? q.x : k < 8 ? q.y : k < 12 ? q.z : q.w;
+// tile status: a flag in the top two bits, a bit count below
+constexpr unsigned long long kAggregate = 1ull << 62;
+constexpr unsigned long long kPrefix = 2ull << 62;
+constexpr unsigned long long kValue = (1ull << 62) - 1;
+
+__device__ __forceinline__ int byte_at(const uint4* q, int k) {
+  const uint4& v = q[k >> 4];
+  k &= 15;
+  const uint32_t w = k < 4 ? v.x : k < 8 ? v.y : k < 12 ? v.z : v.w;
   return (w >> (8 * (k & 3))) & 0xFF;
-}
-
-// The thread's 16 symbols (zeros past n; n is a multiple of 16).
-__device__ __forceinline__ uint4 load_syms(const uint8_t* data, int64_t base,
-                                           int64_t n) {
-  return base < n ? *reinterpret_cast<const uint4*>(data + base)
-                  : make_uint4(0, 0, 0, 0);
 }
 
 // Exclusive scan of one int per thread over the block; *total gets the sum.
@@ -60,7 +85,7 @@ __device__ int block_exclusive_scan(int v, int* total) {
   int x = v;
 #pragma unroll
   for (int o = 1; o < 32; o <<= 1) {
-    const int y = __shfl_up_sync(0xffffffffu, x, o);
+    const int y = __shfl_up_sync(kFull, x, o);
     if (lane >= o) x += y;
   }
   if (lane == 31) warp_sums[warp] = x;
@@ -69,7 +94,7 @@ __device__ int block_exclusive_scan(int v, int* total) {
     int s = lane < kWarps ? warp_sums[lane] : 0;
 #pragma unroll
     for (int o = 1; o < kWarps; o <<= 1) {
-      const int y = __shfl_up_sync(0xffffffffu, s, o);
+      const int y = __shfl_up_sync(kFull, s, o);
       if (lane >= o) s += y;
     }
     if (lane < kWarps) warp_sums[lane] = s;  // inclusive over warps
@@ -79,120 +104,186 @@ __device__ int block_exclusive_scan(int v, int* total) {
   return (warp ? warp_sums[warp - 1] : 0) + x - v;
 }
 
-__global__ void __launch_bounds__(kThreads)
-block_sums_kernel(const uint8_t* __restrict__ data, int64_t n, int64_t valid_len,
-                  const int* __restrict__ lengths, int64_t* __restrict__ sums) {
-  __shared__ int len_s[256];
-  len_s[threadIdx.x] = lengths[threadIdx.x];  // kThreads == 256
-  __syncthreads();
-  const int64_t base = (int64_t)blockIdx.x * kTile + threadIdx.x * kSymsPerThread;
-  const uint4 q = load_syms(data, base, n);
-  int s = 0;
-#pragma unroll
-  for (int k = 0; k < kSymsPerThread; ++k) {
-    s += base + k < valid_len ? len_s[byte_at(q, k)] : 0;
-  }
-  int total;
-  block_exclusive_scan(s, &total);
-  if (threadIdx.x == 0) sums[blockIdx.x] = total;
+__device__ __forceinline__ void publish(unsigned long long* status, int64_t t,
+                                        unsigned long long v) {
+  __threadfence();
+  *reinterpret_cast<volatile unsigned long long*>(status + t) = v;
 }
 
-__device__ __forceinline__ void flush(uint32_t* words, int64_t out_words,
-                                      int64_t idx, uint32_t bits) {
-  if (bits && idx >= 0 && idx < out_words) atomicOr(&words[idx], bits);
+// Called by warp 0 alone: the bits of all tiles before tile t.
+__device__ int64_t look_back(unsigned long long* status, int64_t t, int64_t sum) {
+  const int lane = threadIdx.x & 31;
+  if (t == 0) {
+    if (lane == 0) publish(status, 0, kPrefix | (unsigned long long)sum);
+    return 0;
+  }
+  if (lane == 0) publish(status, t, kAggregate | (unsigned long long)sum);
+  int64_t excl = 0;
+  for (int64_t j = t - 1 - lane;; j -= 32) {  // lane l: tile t - 1 - l, then 32 back
+    unsigned long long v;
+    do {  // a tile before t has its ticket, so it publishes soon
+      v = kPrefix;  // before the first tile: an inclusive prefix of 0
+      if (j >= 0) v = *reinterpret_cast<volatile unsigned long long*>(status + j);
+    } while (!__all_sync(kFull, (v >> 62) != 0));
+    const unsigned prefixes = __ballot_sync(kFull, (v >> 62) == 2);
+    // the lanes up to the nearest inclusive prefix contribute
+    int64_t x = prefixes == 0 || lane < __ffs(prefixes) ? (int64_t)(v & kValue) : 0;
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(kFull, x, o);
+    excl += x;
+    if (prefixes) break;
+  }
+  if (lane == 0) publish(status, t, kPrefix | (unsigned long long)(excl + sum));
+  return excl;
 }
 
+// n < 2^27 (the wrapper's check), so symbol indices are 32-bit.
 __global__ void __launch_bounds__(kThreads)
-write_kernel(const uint8_t* __restrict__ data, int64_t n, int64_t valid_len,
-             const int* __restrict__ lengths, const uint32_t* __restrict__ codes,
-             const int64_t* __restrict__ tile_start, uint32_t* __restrict__ words,
-             int64_t out_words, uint32_t* __restrict__ gaps, int subblock) {
-  __shared__ int len_s[256];
-  __shared__ uint32_t code_s[256];
-  len_s[threadIdx.x] = lengths[threadIdx.x];
-  code_s[threadIdx.x] = codes[threadIdx.x];
+encode_kernel(const uint8_t* __restrict__ data, int n, int valid_len,
+              const int* __restrict__ lengths, const uint32_t* __restrict__ codes,
+              uint32_t* __restrict__ words, int64_t out_words, uint32_t* __restrict__ gaps,
+              int subblock, unsigned long long* __restrict__ ws, int tiles) {
+  __shared__ uint2 entry_s[256];  // (code, length)
+  __shared__ uint32_t buf[kTileWords];
+  __shared__ int64_t start_s;
+  __shared__ int tile_s;
+  if (threadIdx.x == 0) tile_s = (int)atomicAdd(&ws[0], 1ull);
+  entry_s[threadIdx.x] = make_uint2(codes[threadIdx.x], lengths[threadIdx.x]);  // 256 threads
   __syncthreads();
 
-  const int64_t base = (int64_t)blockIdx.x * kTile + threadIdx.x * kSymsPerThread;
-  const uint4 q = load_syms(data, base, n);
-  int len[kSymsPerThread];
-  int s = 0;
+  const int t = tile_s;
+  const int base = t * kTile + threadIdx.x * kSymsPerThread;
+  uint4 q[kVecs];  // the thread's symbols (zeros past n; n is a multiple of 32)
+#pragma unroll
+  for (int i = 0; i < kVecs; ++i) {
+    q[i] = base < n ? reinterpret_cast<const uint4*>(data + base)[i] : make_uint4(0, 0, 0, 0);
+  }
+  const int live = min(max(valid_len - base, 0), kSymsPerThread);  // symbols before valid_len
+  // at most one sub-block starts among the thread's symbols (subblock >= 32)
+  const int gap_k = subblock > 0 && base < n ? (subblock - base % subblock) % subblock
+                                             : kSymsPerThread;
+  int s = 0, gap_bits = 0;  // the thread's bits, and those before its gap symbol
+  bool plain = true;         // every code of the thread has 1 to 32 bits
 #pragma unroll
   for (int k = 0; k < kSymsPerThread; ++k) {
-    len[k] = base + k < valid_len ? len_s[byte_at(q, k)] : 0;
-    s += len[k];
+    if (k == gap_k) gap_bits = s;
+    const int l = k < live ? (int)entry_s[byte_at(q, k)].y : 0;
+    plain &= k >= live || (unsigned)(l - 1) < 32u;
+    s += l;
   }
-  int total;
-  int64_t off = tile_start[blockIdx.x] + block_exclusive_scan(s, &total);
-
-  // at most one sub-block starts among the thread's 16 symbols (subblock >= 32)
-  int gap_k = kSymsPerThread;
-  if (subblock > 0 && base < n) {
-    gap_k = (int)((subblock - base % subblock) % subblock);
-  }
-
-  int64_t cur = -1;  // output word held in `acc`
-  uint32_t acc = 0;
-#pragma unroll
-  for (int k = 0; k < kSymsPerThread; ++k) {
-    if (k == gap_k) gaps[(base + k) / subblock] = (uint32_t)off;
-    const int l = len[k];
-    if (l) {
-      const int64_t wi = off >> 5;
-      // a code of more than 32 bits (a codebook the codec refuses) may need
-      // a negative shift: it writes nothing, so that no shift is undefined
-      const int sh = 64 - l - (int)(off & 31);
-      const uint64_t v = sh >= 0 ? (uint64_t)code_s[byte_at(q, k)] << sh : 0;
-      if (wi != cur) {
-        flush(words, out_words, cur, acc);
-        cur = wi;
-        acc = 0;
-      }
-      acc |= (uint32_t)(v >> 32);
-      const uint32_t lo = (uint32_t)v;  // the part that spills into word wi + 1
-      if (lo) {
-        flush(words, out_words, cur, acc);
-        cur = wi + 1;
-        acc = lo;
-      }
-      off += l;
+  int sum;
+  const int excl = block_exclusive_scan(s, &sum);
+  // the words the tile may touch: its bits, after up to 31 of the word before
+  const int nzero = (sum + 62) / 32 < kTileWords ? (sum + 62) / 32 : kTileWords;
+  for (int j = threadIdx.x; j < nzero; j += kThreads) buf[j] = 0;
+  if (threadIdx.x < 32) {
+    const int64_t start = look_back(ws + 2, t, sum);
+    if (threadIdx.x == 0) {
+      start_s = start;
+      if (t == tiles - 1) ws[1] = (unsigned long long)(start + sum);  // total_bits
     }
   }
-  flush(words, out_words, cur, acc);
+  __syncthreads();
+
+  const int64_t start = start_s;
+  const int shift = (int)(start & 31);
+  if (gap_k < kSymsPerThread) gaps[(base + gap_k) / subblock] = (uint32_t)(start + excl + gap_bits);
+
+  // pack: acc holds the current word's bits left-aligned, nb of them used
+  // (those before the thread's first bit belong to its predecessor); the
+  // thread's first word may be shared with the thread before, so it takes
+  // an atomicOr, and the words after it are the thread's alone
+  const int rel = shift + excl;  // the thread's first bit, from the tile's first word
+  int w = rel >> 5;
+  int nb = rel & 31;
+  const int first = w;
+  uint64_t acc = 0;
+  if (plain && rel + s <= 32 * kTileWords) {
+    // codes of 1 to 32 bits, all inside the buffer: nb < 32 before a code,
+    // so at most one word finishes a code
+#pragma unroll
+    for (int k = 0; k < kSymsPerThread; ++k) {
+      if (k < live) {
+        const uint2 e = entry_s[byte_at(q, k)];
+        const int l = (int)e.y;
+        acc |= (uint64_t)e.x << (64 - nb - l);
+        nb += l;
+        if (nb >= 32) {
+          const uint32_t bits = (uint32_t)(acc >> 32);
+          if (w != first) {
+            buf[w] = bits;
+          } else if (bits) {
+            atomicOr(&buf[w], bits);
+          }
+          ++w;
+          acc <<= 32;
+          nb -= 32;
+        }
+      }
+    }
+  } else {
+    // a codebook the codec refuses (a code of 0 or more than 32 bits): the
+    // offsets still move by every length, a code of more than 32 bits
+    // writes nothing (so that no shift is undefined), and nothing past the
+    // buffer is written
+#pragma unroll 1
+    for (int k = 0; k < live; ++k) {
+      const uint2 e = entry_s[data[base + k]];
+      const int l = (int)e.y;
+      if (l >= 1 && l <= 32) acc |= (uint64_t)e.x << (64 - nb - l);
+      nb += l;
+      for (; nb >= 32; nb -= 32, ++w, acc <<= 32) {
+        const uint32_t bits = (uint32_t)(acc >> 32);
+        if (w >= kTileWords) continue;
+        if (w != first) {
+          buf[w] = bits;
+        } else if (bits) {
+          atomicOr(&buf[w], bits);
+        }
+      }
+    }
+  }
+  if (nb > 0 && w < kTileWords && (acc >> 32)) {
+    atomicOr(&buf[w], (uint32_t)(acc >> 32));  // shared with the thread after
+  }
+  __syncthreads();
+
+  if (sum == 0) return;
+  const int nw = (shift + sum + 31) >> 5;  // the words the tile's bits touch
+  const int nstore = nw < kTileWords ? nw : kTileWords;
+  const int64_t first_word = start >> 5;
+  for (int j = threadIdx.x; j < nstore; j += kThreads) {
+    const int64_t g = first_word + j;
+    if (g >= out_words) break;
+    const uint32_t v = buf[j];
+    if (j == 0 || j == nw - 1) {  // may be shared with a neighbouring tile
+      if (v) atomicOr(&words[g], v);
+    } else {
+      words[g] = v;
+    }
+  }
 }
 
 }  // namespace
 
-// Symbols per tile: the wrapper sizes `sums` and `tile_start` with it.
+// Symbols per tile: the wrapper sizes the tile-status array with it.
 extern "C" int dcz_encode_tile_symbols() { return kTile; }
 
-// data: uint8[n], n % 16 == 0, 16-byte aligned; lengths: int32[256];
-// sums: int64[ceil(n / kTile)].
-extern "C" int dcz_encode_block_sums(const void* data, int64_t n, int64_t valid_len,
-                                     const void* lengths, void* sums, void* stream) {
+// data: uint8[n], n % 32 == 0, n < 2^27, 16-byte aligned; lengths: int32[256];
+// codes: uint32[256]; words: uint32[out_words], zeroed; gaps:
+// uint32[ceil(n / subblock)], or unused when subblock == 0 (subblock is
+// otherwise a multiple of 32); ws: int64[2 + ceil(n / kTile)], zeroed: [0] the
+// tile ticket, [1] gets total_bits, [2 + t] tile t's status.
+extern "C" int dcz_encode(const void* data, int64_t n, int64_t valid_len, const void* lengths,
+                          const void* codes, void* words, int64_t out_words, void* gaps,
+                          int subblock, void* ws, void* stream) {
   const int64_t tiles = (n + kTile - 1) / kTile;
   if (tiles > 0) {
-    block_sums_kernel<<<(unsigned)tiles, kThreads, 0, (cudaStream_t)stream>>>(
-        static_cast<const uint8_t*>(data), n, valid_len,
-        static_cast<const int*>(lengths), static_cast<int64_t*>(sums));
-  }
-  return (int)cudaGetLastError();
-}
-
-// codes: uint32[256]; tile_start: int64[tiles], the exclusive cumsum of sums;
-// words: uint32[out_words], zeroed; gaps: uint32[ceil(n / subblock)], or
-// unused when subblock == 0 (subblock is otherwise a multiple of 32).
-extern "C" int dcz_encode_write(const void* data, int64_t n, int64_t valid_len,
-                                const void* lengths, const void* codes,
-                                const void* tile_start, void* words, int64_t out_words,
-                                void* gaps, int subblock, void* stream) {
-  const int64_t tiles = (n + kTile - 1) / kTile;
-  if (tiles > 0) {
-    write_kernel<<<(unsigned)tiles, kThreads, 0, (cudaStream_t)stream>>>(
-        static_cast<const uint8_t*>(data), n, valid_len,
+    encode_kernel<<<(unsigned)tiles, kThreads, 0, (cudaStream_t)stream>>>(
+        static_cast<const uint8_t*>(data), (int)n, (int)valid_len,
         static_cast<const int*>(lengths), static_cast<const uint32_t*>(codes),
-        static_cast<const int64_t*>(tile_start), static_cast<uint32_t*>(words),
-        out_words, static_cast<uint32_t*>(gaps), subblock);
+        static_cast<uint32_t*>(words), out_words, static_cast<uint32_t*>(gaps), subblock,
+        static_cast<unsigned long long*>(ws), (int)tiles);
   }
   return (int)cudaGetLastError();
 }

@@ -5,7 +5,12 @@ Counterpart of ``datacomp_tpu/ops/decode.py::decode_device``: sub-block ``i``
 enters the stream at bit ``gaps[i]`` and yields ``subblock`` symbols, decoded
 with the comparison tables of :func:`build_decode_tables`.  Unlike the JAX
 decoder, the output stops at ``n_out``: nothing is written past the end.  The
-kernel is ``csrc/decode.cu``.
+kernel is ``csrc/decode.cu``: one warp a sub-block, its 32 lanes splitting
+the sub-block's bit range and synchronising their starts in rounds (at most
+31), the stream staged in shared memory, a direct table for codes of up to 12
+bits, and 16-byte stores of the decoded bytes.  Its header sets out the
+schedule; ``tests/test_torch_decode_schedule.py`` holds a numpy model of it
+to the plain version.
 
 The numpy helpers here are the JAX package's, re-homed because importing
 anything under ``datacomp_tpu.ops`` loads jax; tests hold them equal.
@@ -73,8 +78,10 @@ def decode_tables_to_torch(limits: np.ndarray, adj: np.ndarray, sym: np.ndarray,
     )
 
 
-def _check_args(words, gaps, limits, adj, sym, subblock, n_out) -> None:
+def _check_args(words, gaps, limits, adj, sym, subblock, n_out, stats) -> None:
     _build.check_tensor(words, "words", torch.uint32)
+    if stats is not None:
+        _build.check_tensor(stats, "stats", torch.int64, 2)
     _build.check_tensor(gaps, "gaps", torch.uint32)
     _build.check_tensor(limits, "limits", torch.int32, TABLE_BITS)
     _build.check_tensor(adj, "adj", torch.int32, TABLE_BITS)
@@ -112,17 +119,25 @@ def decode_reference(words, gaps, limits, adj, sym, subblock: int, n_out: int):
 
 def decode(words: torch.Tensor, gaps: torch.Tensor, limits: torch.Tensor,
            adj: torch.Tensor, sym: torch.Tensor, subblock: int,
-           n_out: int) -> torch.Tensor:
+           n_out: int, stats: torch.Tensor | None = None) -> torch.Tensor:
     """Decode ``n_out`` symbols → uint8[n_out].
 
     ``words`` uint32 is the stream (:func:`payload_to_words`), ``gaps``
     uint32[nsub] the start bit of each sub-block, ``limits``/``adj``/``sym``
     the tables of :func:`build_decode_tables` (codes at most 16 bits).  A CUDA
     tensor launches the kernel; a CPU tensor takes the plain version.
+
+    ``stats``, an int64[2] CUDA tensor, is for measurement: the kernel adds
+    the sub-blocks it decoded to ``stats[0]`` and the synchronisation rounds
+    they took to ``stats[1]``.  The plain version has no rounds, so it takes
+    ``None`` only.
     """
     subblock, n_out = int(subblock), int(n_out)
-    _check_args(words, gaps, limits, adj, sym, subblock, n_out)
-    if _build.on_cpu(words, gaps, limits, adj, sym):
+    _check_args(words, gaps, limits, adj, sym, subblock, n_out, stats)
+    extra = () if stats is None else (stats,)
+    if _build.on_cpu(words, gaps, limits, adj, sym, *extra):
+        if stats is not None:
+            raise ValueError("stats counts the kernel's rounds: it needs CUDA tensors")
         return decode_reference(words, gaps, limits, adj, sym, subblock, n_out)
     out = torch.empty(n_out, dtype=torch.uint8, device=words.device)
     lib = _build.library()
@@ -130,7 +145,8 @@ def decode(words: torch.Tensor, gaps: torch.Tensor, limits: torch.Tensor,
         rc = lib.dcz_decode(
             words.data_ptr(), words.numel(), gaps.data_ptr(), gaps.numel(),
             limits.data_ptr(), adj.data_ptr(), sym.data_ptr(), subblock, n_out,
-            out.data_ptr(), _build.stream(words),
+            out.data_ptr(), stats.data_ptr() if stats is not None else None,
+            _build.stream(words),
         )
     _build.check(rc, "decode")
     kernel_launches.add()

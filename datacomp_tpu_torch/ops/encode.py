@@ -4,7 +4,11 @@ Counterpart of ``datacomp_tpu/ops/encode_merge.py::encode_device_merge`` with
 the same contract: an MSB-first stream of uint32 words (bit 31 of word 0 is
 the first bit), the total bit count and, when ``subblock`` is set, the start
 bit of every ``subblock``-th symbol (the format-v2 gap array).  The kernel is
-``csrc/encode.cu``.
+``csrc/encode.cu``: one launch, a single-pass scan of the code lengths with
+decoupled look-back over 8192-symbol tiles, each tile's words packed in
+shared memory and stored once, with device-memory atomics only on the two
+words a tile may share with its neighbours.  Besides the launch, a call
+makes one zero-fill: the word capacity and the tiles' status array.
 """
 
 from __future__ import annotations
@@ -103,27 +107,24 @@ def encode(data: torch.Tensor, valid_len: int, lengths: torch.Tensor,
         raise ValueError("data must be 16-byte aligned for the kernel's vector loads")
     n = data.numel()
     lib = _build.library()
-    tile = lib.dcz_encode_tile_symbols()
+    tiles = -(-n // lib.dcz_encode_tile_symbols())
     dev = data.device
-    sums = torch.empty((n + tile - 1) // tile, dtype=torch.int64, device=dev)
-    words = torch.zeros(out_words, dtype=torch.uint32, device=dev)
+    # one zero-fill: [tile ticket, total_bits, tile statuses...] as int64,
+    # then the words (an even offset in int32 units keeps the int64 aligned)
+    ws_len = 2 * (2 + tiles)
+    zeroed = torch.zeros(ws_len + out_words, dtype=torch.int32, device=dev)
+    ws = zeroed[:ws_len].view(torch.int64)
+    words = zeroed[ws_len:].view(torch.uint32)
     gaps = (
         torch.empty((n + subblock - 1) // subblock, dtype=torch.uint32, device=dev)
         if subblock else None
     )
     with torch.cuda.device(dev):
-        rc = lib.dcz_encode_block_sums(data.data_ptr(), n, valid_len,
-                                       lengths.data_ptr(), sums.data_ptr(),
-                                       _build.stream(data))
-        _build.check(rc, "encode (block sums)")
-        ends = torch.cumsum(sums, 0)
-        tile_start = ends - sums
-        rc = lib.dcz_encode_write(
+        rc = lib.dcz_encode(
             data.data_ptr(), n, valid_len, lengths.data_ptr(), codes.data_ptr(),
-            tile_start.data_ptr(), words.data_ptr(), out_words,
-            gaps.data_ptr() if gaps is not None else None, subblock,
-            _build.stream(data),
+            words.data_ptr(), out_words, gaps.data_ptr() if gaps is not None else None,
+            subblock, ws.data_ptr(), _build.stream(data),
         )
-    _build.check(rc, "encode (write)")
+    _build.check(rc, "encode")
     kernel_launches.add()
-    return words, ends[-1], gaps
+    return words, ws[1], gaps

@@ -1,6 +1,10 @@
-"""Measurement tools of the port: the A/B harness of K1's variants
-(:mod:`.ab_histogram`) and the CUDA-event timer that it and ``chip_smoke.py``
-share."""
+"""Measurement tools of the port: the A/B harnesses of K1's variants
+(:mod:`.ab_histogram`) and of K2/K3 build variants (:mod:`.ab_codec`), and
+the timers that they and ``chip_smoke.py`` share: :func:`cuda_ms` (CUDA
+events around back-to-back calls, so a call whose host work outlasts its
+device work is timed by its host work) and ``ab_codec.graph_ms`` (the same
+calls replayed from CUDA graphs: the device time alone; it lives in
+:mod:`.ab_codec`, whose turns run it against other checkouts too)."""
 
 from __future__ import annotations
 
@@ -31,3 +35,4 @@ def cuda_ms(fn, inputs: list, reps: int) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+

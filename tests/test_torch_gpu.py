@@ -5,7 +5,12 @@ GPU service's output against the host codec's.  Exact equality throughout.
 
 Also K4 (the codebook) and K1's A/B variants against their plain versions,
 K2 on a codebook deeper than 32 bits, and one 16 MiB chunk through the
-device-codebook mode.
+device-codebook mode.  K3's warp-per-sub-block schedule at every code depth
+from 1 to 16, on a fixed-length code (no sync round), on the periodic
+``compressible`` text, at sub-blocks of 32 and 65 536 symbols (the second
+beyond the per-warp buffers), with a 1-symbol last sub-block, and on random
+streams (no fault, ``n_out`` bytes back); K2's single pass with tiles that
+start and end mid-word and ``out_words`` cut inside a tile.
 
 Marked ``gpu``: every test skips without a CUDA device.  On a machine with
 one (and no jax, which ``tests/conftest.py`` imports):
@@ -110,6 +115,112 @@ def test_decode_kernel_matches_plain(cuda, kind):
     got = ops.decode(w, g, *tables, S, data.size)
     assert _same(got, ops.decode_reference(w, g, *tables, S, data.size))
     assert np.array_equal(got.cpu().numpy(), data)
+
+
+def _fixed_length_codebook(n: int):
+    """64 symbols at 6 bits: every codeword starts a multiple of 6 bits in."""
+    lengths = np.zeros(256, np.int32)
+    lengths[:64] = 6
+    data = np.random.default_rng(6).integers(0, 64, n).astype(np.uint8)
+    return data, lengths, canonical_codes_from_lengths(lengths)
+
+
+def _decode_both(cuda, data, lengths, codes, subblock, stats=None):
+    """K2 then K3 on the card, each held to its plain version; returns the
+    kernel's decoded bytes (as numpy)."""
+    n_pad = -(-data.size // 32) * 32
+    padded = np.zeros(n_pad, np.uint8)
+    padded[: data.size] = data
+    x = torch.from_numpy(padded).to(cuda)
+    tables = ops.codebook_to_torch(lengths, codes, cuda)
+    kw, ktb, kg = ops.encode(x, data.size, *tables, n_pad + 2, subblock)
+    rw, rtb, rg = ops.encode_reference(x, data.size, *tables, n_pad + 2, subblock)
+    assert int(ktb) == int(rtb) and _same(kw, rw) and _same(kg, rg)
+    payload = ops.words_to_bytes(kw.cpu().numpy(), int(ktb))
+    w = torch.from_numpy(ops.payload_to_words(payload)).to(cuda)
+    g = kg[: -(-data.size // subblock)].contiguous()
+    dt = ops.decode_tables_to_torch(*ops.build_decode_tables(lengths), cuda)
+    got = ops.decode(w, g, *dt, subblock, data.size, stats)
+    assert _same(got, ops.decode_reference(w, g, *dt, subblock, data.size))
+    assert np.array_equal(got.cpu().numpy(), data)
+    return got
+
+
+@pytest.mark.parametrize("depth", range(1, 17))
+def test_decode_kernel_at_every_depth(cuda, depth):
+    _decode_both(cuda, *_codebook(f"depth{depth}"), 4032)
+
+
+def test_decode_kernel_fixed_length_code_takes_no_round(cuda):
+    data, lengths, codes = _fixed_length_codebook(50_000)
+    stats = torch.zeros(2, dtype=torch.int64, device=cuda)
+    _decode_both(cuda, data, lengths, codes, 4032, stats)
+    assert stats.tolist() == [-(-data.size // 4032), 0]
+
+
+def test_decode_kernel_periodic_compressible_text(cuda):
+    data = np.frombuffer(generate_bytes("compressible", 300_000), np.uint8)
+    lengths, codes = build_codebook(np.bincount(data, minlength=256), mode="fast", max_len=16)
+    stats = torch.zeros(2, dtype=torch.int64, device=cuda)
+    _decode_both(cuda, data, lengths, codes, 4032, stats)
+    nsub = -(-data.size // 4032)
+    assert stats[0].item() == nsub and 0 <= stats[1].item() <= 31 * nsub
+
+
+@pytest.mark.parametrize("subblock", [32, 65_536])
+@pytest.mark.parametrize("kind", ["text", "skewed"])
+def test_decode_kernel_small_and_large_subblocks(cuda, kind, subblock):
+    """65 536 symbols of a few bits each exceed a warp's shared-memory
+    buffers: the direct route in the same kernel."""
+    data = np.frombuffer(generate_bytes(kind, 200_000), np.uint8)
+    lengths, codes = build_codebook(np.bincount(data, minlength=256), mode="fast", max_len=16)
+    _decode_both(cuda, data, lengths, codes, subblock)
+
+
+@pytest.mark.parametrize("subblock", [32, 4032])
+def test_decode_kernel_one_symbol_last_subblock(cuda, subblock):
+    data = np.frombuffer(generate_bytes("text", 3 * subblock + 1), np.uint8)
+    lengths, codes = build_codebook(np.bincount(data, minlength=256), mode="fast", max_len=16)
+    _decode_both(cuda, data, lengths, codes, subblock)
+
+
+@pytest.mark.parametrize("gaps_kind", ["monotone", "non-monotone"])
+def test_decode_kernel_survives_random_streams(cuda, gaps_kind):
+    """Random words: no fault, and n_out bytes back (their values are
+    garbage, which the chunk's SHA-256 would catch)."""
+    rng = np.random.default_rng(7)
+    _, lengths, _ = _codebook("skewed")
+    nwords, nsub, subblock = 20_000, 150, 4032
+    words = torch.from_numpy(rng.integers(0, 1 << 32, nwords, dtype=np.uint64)
+                             .astype(np.uint32)).to(cuda)
+    gaps = rng.integers(0, 32 * nwords + 1000, nsub)
+    if gaps_kind == "monotone":
+        gaps = np.sort(gaps)
+    gaps = torch.from_numpy(gaps.astype(np.uint32)).to(cuda)
+    dt = ops.decode_tables_to_torch(*ops.build_decode_tables(lengths), cuda)
+    n_out = nsub * subblock - 17
+    out = ops.decode(words, gaps, *dt, subblock, n_out)
+    torch.cuda.synchronize()
+    assert out.shape == (n_out,) and out.dtype == torch.uint8
+
+
+def test_encode_kernel_tiles_start_and_end_mid_word(cuda):
+    """Three 4096-symbol tiles of 3- to 8-bit codes, and out_words cut inside
+    the second tile: tiles share their boundary words."""
+    data = np.frombuffer(generate_bytes("text", 3 * 4096 + 1000), np.uint8)
+    lengths, codes = build_codebook(np.bincount(data, minlength=256), mode="fast", max_len=16)
+    padded = np.zeros(4 * 4096, np.uint8)
+    padded[: data.size] = data
+    x = torch.from_numpy(padded).to(cuda)
+    tables = ops.codebook_to_torch(lengths, codes, cuda)
+    ends = np.cumsum(lengths.astype(np.int64)[data])
+    tile_ends = ends[[4095, 8191, 12287]]
+    assert (tile_ends % 32).all()  # every tile boundary falls inside a word
+    for out_words in (int(tile_ends[-1]) // 32 + 400, int(tile_ends[0]) // 32 + 100):
+        kw, ktb, kg = ops.encode(x, data.size, *tables, out_words, 64)
+        rw, rtb, rg = ops.encode_reference(x, data.size, *tables, out_words, 64)
+        assert int(ktb) == int(rtb) == int(ends[-1])
+        assert _same(kw, rw) and _same(kg, rg)
 
 
 def test_encode_kernel_stays_in_bounds_on_codes_deeper_than_32_bits(cuda):
