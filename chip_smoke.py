@@ -13,8 +13,11 @@
    version bit for bit (live words, total bits, gap array) and the decode
    returns the input.  K3 also reports its mean synchronisation rounds a
    sub-block, and K2 the time of its wrapper's zero-fill alone.  Then a
-   ``text`` chunk with ``valid_len = n - 12345``, which leaves a short last
-   sub-block, through both kernels.
+   ``dense`` chunk (random bytes, every 8th sub-block zeros: about 7.6 bits
+   a byte, so the codec codes it, with most sub-blocks too dense for K3's
+   per-warp buffers), timed for K3's direct route; and a ``text`` chunk with
+   ``valid_len = n - 12345``, which leaves a short last sub-block, through
+   both kernels.
 4. K4 codebook on a few hundred histograms (the corpus's 8 chunks, random
    symbol subsets, heavy ties, one, two and no symbols, Fibonacci histograms
    of depth 20, 32 and 40): lengths equal the plain version's everywhere,
@@ -47,7 +50,7 @@ cycling through copies of the inputs that together exceed the L2 cache, so
 that each call reads its input cold: back-to-back calls, so a call whose
 wrapper's host work outlasts its device work is timed by the host work.
 K1, K2 and K3 also get ``device_ms``, the device time alone: the same calls
-captured into CUDA graphs and replayed (``tools.ab_codec.graph_ms``), and K2
+captured into CUDA graphs and replayed (``tools.graph_ms``), and K2
 the time of its wrapper's zero-fill alone, also replayed.  The launch counts of the kernels line
 come from the run of each kernel's path (phases 5-7), with the counts set to
 0 just before it and read just after; the comparison launches are not in
@@ -75,6 +78,7 @@ import torch
 
 CHUNK = 16 << 20  # the default chunk size, and the kernels' main-path shape
 SUBBLOCK = 4032  # the default v2 sub-block (symbols)
+K3_WARP_WORDS = 1024  # csrc/decode.cu's kWarpWords: a larger sub-block takes the direct route
 CORPUS_MB = 128  # bench.py's default corpus
 TAIL = 12345  # bytes that valid_len leaves out of the histogram inputs
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (NVIDIA data sheet)
@@ -109,8 +113,7 @@ def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> int:
 def check_histogram(cfg) -> dict:
     from datacomp_tpu_torch.ops import histogram, histogram_reference
     from datacomp_tpu_torch.services import GpuFrequencyService
-    from datacomp_tpu_torch.tools import copies, cuda_ms
-    from datacomp_tpu_torch.tools.ab_codec import graph_ms
+    from datacomp_tpu_torch.tools import copies, cuda_ms, graph_ms
 
     host = np.random.default_rng(0).integers(0, 256, CHUNK, dtype=np.uint8)
     valid = CHUNK - TAIL
@@ -182,22 +185,38 @@ def run_codec(kind: str, data: np.ndarray, valid: int) -> dict:
     subs, rounds = stats.tolist()
     if subs != nsub:
         fail(f"K3 {kind}: {subs} sub-blocks counted, {nsub} expected")
+    g = np.append(gaps.cpu().numpy().astype(np.int64), 32 * words.numel())
+    direct = int((((g[1:] >> 5) + 3 - (g[:-1] >> 5)) > K3_WARP_WORDS).sum())
     return {"x": x, "lt": lt, "ct": ct, "out_words": out_words, "live": live, "nsub": nsub,
             "words": words, "gaps": gaps, "tables": tables, "depth": int(lengths.max()),
-            "bits_per_byte": tb / valid, "sync_rounds": rounds / nsub,
+            "bits_per_byte": tb / valid, "sync_rounds": rounds / nsub, "direct": direct,
             "enc_err": max(max_abs_err(kw, rw), max_abs_err(kg, rg)),
             "dec_err": max_abs_err(kd, rd)}
+
+
+def dense_chunk() -> np.ndarray:
+    """Random bytes with every 8th sub-block zeros: under 8 bits a byte, so
+    the codec codes it rather than store it raw, while the random sub-blocks
+    take more than ``K3_WARP_WORDS`` words each."""
+    data = np.random.default_rng(3).integers(0, 256, CHUNK, dtype=np.uint8)
+    for i in range(0, -(-CHUNK // SUBBLOCK), 8):
+        data[i * SUBBLOCK : (i + 1) * SUBBLOCK] = 0
+    return data
 
 
 def check_codec(kind: str) -> dict:
     from datacomp_tpu_torch.ops import (
         _build, decode, decode_reference, encode, encode_reference,
     )
-    from datacomp_tpu_torch.tools import copies, cuda_ms
-    from datacomp_tpu_torch.tools.ab_codec import graph_ms
+    from datacomp_tpu_torch.tools import copies, cuda_ms, graph_ms
     from datacomp_tpu_torch.utils.testdata import generate_bytes
 
-    c = run_codec(kind, np.frombuffer(generate_bytes(kind, CHUNK), np.uint8), CHUNK)
+    data = (dense_chunk() if kind == "dense"
+            else np.frombuffer(generate_bytes(kind, CHUNK), np.uint8))
+    c = run_codec(kind, data, CHUNK)
+    if kind == "dense" and not (c["bits_per_byte"] < 8 and c["direct"] > c["nsub"] // 2):
+        fail(f"K3 dense: {c['bits_per_byte']} bits a byte, {c['direct']} of {c['nsub']} "
+             f"sub-blocks on the direct route")
     lt, ct, out_words, tables, nsub = c["lt"], c["ct"], c["out_words"], c["tables"], c["nsub"]
     xs, ws = copies(c["x"]), copies(c["words"], c["gaps"])
     table_bytes = sum(t.numel() * t.element_size() for t in tables)
@@ -231,6 +250,7 @@ def check_codec(kind: str) -> dict:
             "library_ms": None,
         },
         "sync_rounds": c["sync_rounds"],
+        "direct_subblocks": c["direct"],
     }
     print(f"K2/K3 16 MiB {kind} (depth {res['depth']}, {res['bits_per_byte']} "
           f"bits/byte): encode kernel {res['encode']['ms']} ms (device time alone "
@@ -239,7 +259,8 @@ def check_codec(kind: str) -> dict:
           f"bound {res['encode']['bound_ms']} ms; decode kernel {res['decode']['ms']} ms "
           f"(device time alone {res['decode']['device_ms']} ms), plain "
           f"{res['decode']['plain_ms']} ms, bound {res['decode']['bound_ms']} ms, "
-          f"{res['sync_rounds']} sync rounds a sub-block; bit-exact, round trip ok",
+          f"{res['sync_rounds']} sync rounds a sub-block, {c['direct']} of {nsub} "
+          f"sub-blocks on the direct route; bit-exact, round trip ok",
           flush=True)
     return res
 
@@ -552,7 +573,7 @@ def main() -> int:
           f"({'ok' if built else f'numpy fallback: {native.build_error()}'})", flush=True)
 
     hist = check_histogram(load_config(compression={"chunk_size_mb": 16}))
-    codec = {kind: check_codec(kind) for kind in ("text", "skewed", "compressible")}
+    codec = {kind: check_codec(kind) for kind in ("text", "skewed", "compressible", "dense")}
     check_short_tail()
     with tempfile.TemporaryDirectory() as d:
         src = os.path.join(d, "bench.bin")
@@ -588,7 +609,10 @@ def main() -> int:
         {"name": "decode", "route": "cuda", "source": source.format("decode"),
          "replaces": "datacomp_tpu/ops/decode.py:133",
          "launches": fast["launches"]["decode"], **codec["text"]["decode"],
-         "sync_rounds": {kind: r["sync_rounds"] for kind, r in codec.items()}},
+         "sync_rounds": {kind: r["sync_rounds"] for kind, r in codec.items()},
+         "direct_route": {key: codec["dense"][key] for key in ("bits_per_byte",
+                                                               "direct_subblocks")}
+         | {key: codec["dense"]["decode"][key] for key in ("ms", "device_ms")}},
         {"name": "codebook", "route": "cuda", "source": source.format("codebook"),
          "replaces": "datacomp_tpu/ops/codebook.py:37",
          "launches": dev2["launches"]["codebook"], **cbook},

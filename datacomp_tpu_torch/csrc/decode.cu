@@ -87,21 +87,14 @@
 
 namespace {
 
-// DCZ_K3_WARPS and DCZ_K3_WARP_WORDS are build-time knobs for the A/B tool
-// (datacomp_tpu_torch/tools/ab_codec.py); the codec builds the defaults.
-#ifndef DCZ_K3_WARPS
-#define DCZ_K3_WARPS 4
-#endif
-#ifndef DCZ_K3_WARP_WORDS
-#define DCZ_K3_WARP_WORDS 1024
-#endif
-
+// kWarps and kWarpWords were chosen on the H100 (PERF.md): 2, 4 or 8
+// warps a block decode at the same speed; 2048-word buffers ran 30 % slower.
 constexpr unsigned kFull = 0xffffffffu;
-constexpr int kWarps = DCZ_K3_WARPS;  // warps a block
+constexpr int kWarps = 4;            // warps a block
 constexpr int kThreads = 32 * kWarps;
 constexpr int kCodeBits = 16;        // the deepest code (TABLE_BITS)
 constexpr int kMaxDirectBits = 12;   // the direct table's largest T
-constexpr int kWarpWords = DCZ_K3_WARP_WORDS;  // a warp's stream buffer and bitmap, in words
+constexpr int kWarpWords = 1024;     // a warp's stream buffer and bitmap, in words
 
 struct __align__(16) Smem {
   uint32_t bitmap[kWarps][kWarpWords];  // also the output staging buffer

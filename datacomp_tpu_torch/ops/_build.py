@@ -6,10 +6,9 @@ and bound with :mod:`ctypes`: no PyTorch headers, so the build takes seconds.
 Each source compiles in its own ``nvcc``, all started together, and one more
 call links the objects.
 The library's file name carries a hash of the sources and flags, so an edited
-source rebuilds.  :func:`variant` builds the same sources with extra ``-D``
-flags (the kernels' build-time knobs) for A/B timing.  The pipeline calls the
-codec from several worker threads and several processes may share a
-checkout, so the build sits behind a thread lock and a file lock.
+source rebuilds.  The pipeline calls the codec from several worker threads and
+several processes may share a checkout, so the build sits behind a thread lock
+and a file lock.
 
 Every C entry point launches on the stream it is given and returns
 ``cudaGetLastError()``; :func:`check` raises when that is not 0.
@@ -17,7 +16,6 @@ Every C entry point launches on the stream it is given and returns
 
 from __future__ import annotations
 
-import contextlib
 import ctypes
 import fcntl
 import hashlib
@@ -81,8 +79,8 @@ def _nvcc() -> str:
     )
 
 
-def library_path(defines: tuple = ()) -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS + tuple(defines)).encode())
+def library_path() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for name in SOURCES:
         h.update(name.encode())
         with open(os.path.join(CSRC, name), "rb") as f:
@@ -103,7 +101,7 @@ def _run_all(cmds: list) -> None:
         raise RuntimeError("\n".join(failed))
 
 
-def _build(path: str, defines: tuple = ()) -> None:
+def _build(path: str) -> None:
     os.makedirs(BUILD_DIR, exist_ok=True)
     with open(os.path.join(BUILD_DIR, "build.lock"), "w") as lock:
         fcntl.flock(lock, fcntl.LOCK_EX)  # released when the file closes
@@ -112,7 +110,7 @@ def _build(path: str, defines: tuple = ()) -> None:
         tmp = f"{path}.{os.getpid()}.tmp"
         objs = [f"{tmp}.{os.path.splitext(s)[0]}.o" for s in SOURCES]
         try:
-            _run_all([[_nvcc(), *NVCC_FLAGS, *defines, "-c", "-o", obj, os.path.join(CSRC, src)]
+            _run_all([[_nvcc(), *NVCC_FLAGS, "-c", "-o", obj, os.path.join(CSRC, src)]
                       for src, obj in zip(SOURCES, objs)])
             _run_all([[_nvcc(), *NVCC_FLAGS, "-shared", "-o", tmp, *objs]])
         finally:
@@ -122,41 +120,23 @@ def _build(path: str, defines: tuple = ()) -> None:
         os.replace(tmp, path)
 
 
-def _load(defines: tuple = ()) -> ctypes.CDLL:
-    path = library_path(defines)
-    if not os.path.exists(path):
-        _build(path, defines)
-    lib = ctypes.CDLL(path)
-    for name, argtypes in _SIGNATURES.items():
-        fn = getattr(lib, name)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-    lib.dcz_error_string.argtypes = (ctypes.c_int,)
-    lib.dcz_error_string.restype = ctypes.c_char_p
-    return lib
-
-
 def library() -> ctypes.CDLL:
     """The kernel library, built on first use."""
     global _lib
     with _lock:
         if _lib is None:
-            _lib = _load()
+            path = library_path()
+            if not os.path.exists(path):
+                _build(path)
+            lib = ctypes.CDLL(path)
+            for name, argtypes in _SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            lib.dcz_error_string.argtypes = (ctypes.c_int,)
+            lib.dcz_error_string.restype = ctypes.c_char_p
+            _lib = lib
         return _lib
-
-
-@contextlib.contextmanager
-def variant(defines: tuple):
-    """Inside the block, the ops launch the kernels built with the extra
-    ``-D`` flags ``defines`` (for A/B timing; not for concurrent use)."""
-    global _lib
-    with _lock:
-        saved, _lib = _lib, _load(tuple(defines))
-    try:
-        yield _lib
-    finally:
-        with _lock:
-            _lib = saved
 
 
 def check(rc: int, op: str) -> None:

@@ -1,33 +1,30 @@
-"""A/B harness of K2 (encode) and K3 (decode) on one CUDA device: build
-variants of this checkout, or this checkout against another.
+"""A/B harness of K2 (encode) and K3 (decode) on one CUDA device: this
+checkout against another.
 
-    python -m datacomp_tpu_torch.tools.ab_codec [size_mb] [variant ...]
-    python -m datacomp_tpu_torch.tools.ab_codec [size_mb] --checkout DIR
+    python -m datacomp_tpu_torch.tools.ab_codec [size_mb] [--checkout DIR]
 
-A variant is a comma-separated list of the kernels' build-time knobs, each
-``NAME=VALUE`` (``DCZ_K3_WARPS``, ``DCZ_K3_WARP_WORDS``, ``DCZ_K2_SYMS``),
-passed to ``nvcc`` as ``-D`` flags; ``default`` is the codec's own build.
-With ``--checkout DIR`` the two sides are DIR, another checkout of this
-repository (for example ``git archive`` of the parent commit, unpacked), and
-this checkout, each timed in a process of its own with its checkout first on
-the path, in turns DIR, this, this, DIR; a turn uses only the ops' public
-calls, which both sides share.
+DIR is another checkout of this repository, for example the parent commit
+unpacked by ``git archive`` into a git-ignored directory of this one
+(``_ab/parent``).  Each side is timed in a process of its own with its
+checkout first on the path, in turns DIR, this, this, DIR (without DIR:
+this, this); a turn builds its side's kernels into that checkout's
+``datacomp_tpu_torch/_build/`` and uses only the ops' public calls, which
+both sides share, timed by this checkout's :func:`..tools.graph_ms`.
 
 For each input kind (``text``, ``skewed``, ``compressible`` from
 ``utils.testdata``) at ``size_mb`` MiB (16 by default) with the v2 codebook
 (``fast``, auto cap) and 4032-symbol sub-blocks, a turn holds the encode to
 its plain version and the decode to the input, then times each as the device
-time of a call (:func:`graph_ms`: CUDA graphs replayed between CUDA events,
-the encode's zero-fill included), cycling through copies of the inputs that
-together exceed L2.  Every side has two turns (in order, then in reverse).
-One JSON line a side and kind: ``{"variant", "kind", "encode_ms",
-"decode_ms", "exact"}`` with the mean of the two turns, and, for build
-variants, ``sync_rounds``, K3's mean rounds a sub-block.  It exits 1 when a
-side is not exact, and needs a CUDA device.
+time of a call (CUDA graphs replayed between CUDA events, the encode's
+zero-fill included), cycling through copies of the inputs that together
+exceed L2.  One JSON line a side and kind: ``{"side", "kind", "encode_ms",
+"decode_ms", "exact"}`` with the mean of the side's two turns.  It exits 1
+when a side is not exact, and needs a CUDA device.
 """
 
 from __future__ import annotations
 
+import importlib.util
 import json
 import os
 import subprocess
@@ -39,48 +36,28 @@ import torch
 KINDS = ("text", "skewed", "compressible")
 SUBBLOCK = 4032
 REPS = 48
-#: copies of the inputs, together more than the H100's 50 MB L2
-COLD_COPIES = 6
+_HERE = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
-def graph_ms(fn, inputs: list, reps: int) -> float:
-    """Mean device time of ``fn(*inputs[i % len(inputs)])``: each input copy's
-    call is captured once into a CUDA graph (all its kernels and fills), and
-    the graphs are replayed in turns ``reps`` times between CUDA events, so
-    the wrapper's host work is not in the time.  ``fn`` must be capturable:
-    no synchronisation and no copy to the host."""
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    graphs = []
-    with torch.cuda.stream(side):
-        for args in inputs:  # warm-up: builds and first-use work stay out of the graphs
-            fn(*args)
-        side.synchronize()
-        for args in inputs:
-            g = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(g, stream=side):
-                fn(*args)
-            graphs.append(g)
-    torch.cuda.current_stream().wait_stream(side)
-    graphs[-1].replay()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for i in range(reps):
-        graphs[i % len(graphs)].replay()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / reps
+def _timers():
+    """This checkout's ``tools`` module, loaded from its file: the other
+    side's package may be the one on the path, and both sides must be timed
+    by the same code."""
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "__init__.py")
+    spec = importlib.util.spec_from_file_location("_ab_codec_timers", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 
-def measure(size_mb: int, rounds: bool) -> list:
+def measure(size_mb: int) -> list:
     """One turn with whichever ``datacomp_tpu_torch`` is first on the path:
-    ``[{"kind", "encode_ms", "decode_ms", "exact"[, "sync_rounds"]}]``."""
+    ``[{"kind", "encode_ms", "decode_ms", "exact"}]``."""
     from datacomp_tpu_torch import ops
     from datacomp_tpu_torch.core.huffman import build_codebook
     from datacomp_tpu_torch.utils.testdata import generate_bytes
 
+    timers = _timers()
     n = size_mb << 20
     out_words = (9 * n + 31) // 32 + 2
     nsub = -(-n // SUBBLOCK)
@@ -99,23 +76,18 @@ def measure(size_mb: int, rounds: bool) -> list:
         words = torch.from_numpy(ops.payload_to_words(payload)).cuda()
         gaps = rg[:nsub].contiguous()
         tables = ops.decode_tables_to_torch(*ops.build_decode_tables(lengths), "cuda")
-        row = {"kind": kind}
-        if rounds:
-            stats = torch.zeros(2, dtype=torch.int64, device="cuda")
-            kd = ops.decode(words, gaps, *tables, SUBBLOCK, n, stats)
-            row["sync_rounds"] = stats[1].item() / stats[0].item()
-        else:
-            kd = ops.decode(words, gaps, *tables, SUBBLOCK, n)
-        row["exact"] = bool(int(ktb) == tb and torch.equal(kw[:live].cpu(), rw[:live].cpu())
-                            and torch.equal(kg.cpu(), rg.cpu())
-                            and np.array_equal(kd.cpu().numpy(), data))
-        xs = [(x.clone(),) for _ in range(COLD_COPIES)]
-        ws = [(words.clone(), gaps.clone()) for _ in range(COLD_COPIES)]
-        row["encode_ms"] = graph_ms(
-            lambda t: ops.encode(t, n, lt, ct, out_words, SUBBLOCK), xs, REPS)
-        row["decode_ms"] = graph_ms(
-            lambda w, g: ops.decode(w, g, *tables, SUBBLOCK, n), ws, REPS)
-        rows.append(row)
+        kd = ops.decode(words, gaps, *tables, SUBBLOCK, n)
+        exact = bool(int(ktb) == tb and torch.equal(kw[:live].cpu(), rw[:live].cpu())
+                     and torch.equal(kg.cpu(), rg.cpu())
+                     and np.array_equal(kd.cpu().numpy(), data))
+        rows.append({
+            "kind": kind,
+            "encode_ms": timers.graph_ms(lambda t: ops.encode(t, n, lt, ct, out_words, SUBBLOCK),
+                                         timers.copies(x), REPS),
+            "decode_ms": timers.graph_ms(lambda w, g: ops.decode(w, g, *tables, SUBBLOCK, n),
+                                         timers.copies(words, gaps), REPS),
+            "exact": exact,
+        })
     return rows
 
 
@@ -127,30 +99,20 @@ def _turn_in(checkout: str, size_mb: int) -> list:
     return json.loads(out.stdout.strip().splitlines()[-1])
 
 
-def run(size_mb: int = 16, variants: tuple = ("default",), checkout: str | None = None,
-        emit=print) -> list:
-    here = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-    names = (checkout, "this") if checkout else variants
+def run(size_mb: int = 16, checkout: str | None = None, emit=print) -> list:
+    sides = {"this": _HERE} if checkout is None else {checkout: checkout, "this": _HERE}
+    names = list(sides)
     results = {name: [] for name in names}
-    for name in list(names) + list(reversed(names)):
-        if checkout:
-            results[name].append(_turn_in(here if name == "this" else checkout, size_mb))
-        else:
-            from datacomp_tpu_torch.ops import _build
-
-            defines = () if name == "default" else tuple(f"-D{d}" for d in name.split(","))
-            with _build.variant(defines):
-                results[name].append(measure(size_mb, rounds=True))
+    for name in names + names[::-1]:
+        results[name].append(_turn_in(sides[name], size_mb))
     records = []
     for name in names:
         for i, kind in enumerate(KINDS):
             a, b = (turn[i] for turn in results[name])
-            rec = {"variant": name, "kind": kind,
+            rec = {"side": name, "kind": kind,
                    "encode_ms": (a["encode_ms"] + b["encode_ms"]) / 2,
                    "decode_ms": (a["decode_ms"] + b["decode_ms"]) / 2,
                    "exact": a["exact"] and b["exact"]}
-            if "sync_rounds" in a:
-                rec["sync_rounds"] = a["sync_rounds"]
             emit(json.dumps(rec))
             records.append(rec)
     return records
@@ -161,16 +123,15 @@ def main(argv: list) -> int:
         print("ab_codec: needs a CUDA device", file=sys.stderr)
         return 1
     if argv[:1] == ["--worker"]:
-        print(json.dumps(measure(int(argv[1]), rounds=False)))
+        print(json.dumps(measure(int(argv[1]))))
         return 0
     checkout = None
     if "--checkout" in argv:
         i = argv.index("--checkout")
         checkout = os.path.abspath(argv[i + 1])
         argv = argv[:i] + argv[i + 2:]
-    size_mb = int(argv[0]) if argv and argv[0].isdigit() else 16
-    variants = tuple(a for a in argv if not a.isdigit()) or ("default",)
-    records = run(size_mb, variants, checkout)
+    size_mb = int(argv[0]) if argv else 16
+    records = run(size_mb, checkout)
     return 0 if all(r["exact"] for r in records) else 1
 
 

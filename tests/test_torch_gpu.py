@@ -205,18 +205,31 @@ def test_decode_kernel_survives_random_streams(cuda, gaps_kind):
 
 
 def test_encode_kernel_tiles_start_and_end_mid_word(cuda):
-    """Three 4096-symbol tiles of 3- to 8-bit codes, and out_words cut inside
-    the second tile: tiles share their boundary words."""
-    data = np.frombuffer(generate_bytes("text", 3 * 4096 + 1000), np.uint8)
+    """Three full K2 tiles and a partial one of 3- to 10-bit codes, every tile
+    boundary inside a word (tiles share their boundary words), and out_words
+    cut inside the second tile."""
+    from datacomp_tpu_torch.ops import _build
+
+    tile = _build.library().dcz_encode_tile_symbols()
+    data = np.frombuffer(generate_bytes("text", 3 * tile + 1000), np.uint8).copy()
     lengths, codes = build_codebook(np.bincount(data, minlength=256), mode="fast", max_len=16)
-    padded = np.zeros(4 * 4096, np.uint8)
+    # move a boundary that falls on a word edge: give its tile's last symbol
+    # a code of another length
+    other = {int(lengths[s]): s for s in np.flatnonzero(lengths)}
+    for t in range(1, 4):
+        if int(lengths.astype(np.int64)[data[: t * tile]].sum()) % 32 == 0:
+            last = data[t * tile - 1]
+            data[t * tile - 1] = next(s for l, s in other.items() if l != lengths[last])
+    ends = np.cumsum(lengths.astype(np.int64)[data])
+    tile_ends = ends[[tile - 1, 2 * tile - 1, 3 * tile - 1]]
+    assert (tile_ends % 32).all()  # every tile boundary falls inside a word
+    padded = np.zeros(-(-data.size // 32) * 32, np.uint8)
     padded[: data.size] = data
     x = torch.from_numpy(padded).to(cuda)
     tables = ops.codebook_to_torch(lengths, codes, cuda)
-    ends = np.cumsum(lengths.astype(np.int64)[data])
-    tile_ends = ends[[4095, 8191, 12287]]
-    assert (tile_ends % 32).all()  # every tile boundary falls inside a word
-    for out_words in (int(tile_ends[-1]) // 32 + 400, int(tile_ends[0]) // 32 + 100):
+    cut = int(tile_ends[0] + tile_ends[1]) // 64  # a word inside the second tile
+    assert tile_ends[0] // 32 < cut < tile_ends[1] // 32
+    for out_words in (int(ends[-1]) // 32 + 400, cut):
         kw, ktb, kg = ops.encode(x, data.size, *tables, out_words, 64)
         rw, rtb, rg = ops.encode_reference(x, data.size, *tables, out_words, 64)
         assert int(ktb) == int(rtb) == int(ends[-1])
