@@ -5,8 +5,10 @@
 
 1. Builds the CUDA kernels from ``datacomp_tpu_torch/csrc`` (nvcc, sm_90a,
    one process a source).
-2. K1 histogram on a 16 MiB chunk with ``valid_len = n - 12345``: kernel ==
-   plain PyTorch version == ``np.bincount``; the service's 1 KB probe passes.
+2. K1 histogram on 16 MiB chunks of ``random``, ``text``, ``skewed``,
+   ``compressible`` and ``zeros`` (one byte repeated) with ``valid_len = n -
+   12345``: kernel == plain PyTorch version == ``np.bincount``, each timed;
+   ``valid_len`` 0, 1, 15, 16 and 17 once; the service's 1 KB probe passes.
 3. K2 encode and K3 decode on 16 MiB ``text``, ``skewed`` and
    ``compressible`` chunks (the last is 45-byte periodic text, the case where
    K3's lanes could lock into a wrong phase): the kernel equals the plain
@@ -19,9 +21,11 @@
    ``valid_len = n - 12345``, which leaves a short last sub-block, through
    both kernels.
 4. K4 codebook on a few hundred histograms (the corpus's 8 chunks, random
-   symbol subsets, heavy ties, one, two and no symbols, Fibonacci histograms
-   of depth 20, 32 and 40): lengths equal the plain version's everywhere,
-   codes wherever the depth is at most 32.
+   symbol subsets, heavy ties, 256 equal counts, one, two and no symbols,
+   Fibonacci histograms of depth 20, 32 and 40, totals of 2^31 - 1 and
+   2^32 - 2): lengths and codes equal the plain version's everywhere.  Its
+   device time on the text chunk's histogram and on Fibonacci-32 beside the
+   launch floor (``zero_()`` of 256 elements, timed the same way).
 5. K1's A/B variants K1s and K1p through their entry point, the harness
    ``datacomp_tpu_torch.tools.ab_histogram``, on 16 MiB ``random`` and
    ``skewed`` input with ``valid_len = n - 12345``; then each configuration
@@ -49,13 +53,15 @@ Kernel, plain and library times are taken with CUDA events after a warm-up,
 cycling through copies of the inputs that together exceed the L2 cache, so
 that each call reads its input cold: back-to-back calls, so a call whose
 wrapper's host work outlasts its device work is timed by the host work.
-K1, K2 and K3 also get ``device_ms``, the device time alone: the same calls
-captured into CUDA graphs and replayed (``tools.graph_ms``), and K2
-the time of its wrapper's zero-fill alone, also replayed.  The launch counts of the kernels line
+K1, K2, K3 and K4 also get ``device_ms``, the device time alone: the same
+calls captured into a CUDA graph and replayed (``tools.graph_ms``; K4 and its
+launch floor 40 calls a graph on each input copy), and K2 the time of its
+wrapper's zero-fill alone, also replayed.  The launch counts of the kernels line
 come from the run of each kernel's path (phases 5-7), with the counts set to
 0 just before it and read just after; the comparison launches are not in
 them.  ``bound_ms`` is the larger of the bytes each kernel must move over
-3.35 TB/s and its operations over 67 T/s (the H100's non-tensor rate).
+3.35 TB/s and its operations over 67 T/s (the H100's non-tensor rate); K4,
+which neither bounds, also carries ``launch_floor_ms``.
 
 The script imports the port alone, never jax or ``datacomp_tpu``; the CPU
 tests hold the port to the JAX package.  All comparisons are exact: the
@@ -81,6 +87,7 @@ SUBBLOCK = 4032  # the default v2 sub-block (symbols)
 K3_WARP_WORDS = 1024  # csrc/decode.cu's kWarpWords: a larger sub-block takes the direct route
 CORPUS_MB = 128  # bench.py's default corpus
 TAIL = 12345  # bytes that valid_len leaves out of the histogram inputs
+HIST_KINDS = ("random", "text", "skewed", "compressible", "zeros")  # K1's inputs
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (NVIDIA data sheet)
 # the H100's non-tensor float32 rate, taken as the ceiling of the integer
 # and compare instructions these kernels are made of
@@ -111,37 +118,49 @@ def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> int:
 
 
 def check_histogram(cfg) -> dict:
+    """K1 on 16 MiB of each of ``HIST_KINDS`` with ``valid_len = n - TAIL``,
+    and on the ``valid_len`` edges; the service's 1 KB probe."""
     from datacomp_tpu_torch.ops import histogram, histogram_reference
     from datacomp_tpu_torch.services import GpuFrequencyService
     from datacomp_tpu_torch.tools import copies, cuda_ms, graph_ms
+    from datacomp_tpu_torch.utils.testdata import generate_bytes
 
-    host = np.random.default_rng(0).integers(0, 256, CHUNK, dtype=np.uint8)
     valid = CHUNK - TAIL
-    x = torch.from_numpy(host).cuda()
-    k = histogram(x, valid)
-    r = histogram_reference(x, valid)
-    want = np.bincount(host[:valid], minlength=256)
-    if not (np.array_equal(k.cpu().numpy(), want) and np.array_equal(r.cpu().numpy(), want)):
-        fail("K1 histogram differs from np.bincount")
+    kinds, err = {}, 0
+    for kind in HIST_KINDS:
+        host = np.frombuffer(generate_bytes(kind, CHUNK), np.uint8)
+        x = torch.from_numpy(host.copy()).cuda()
+        k = histogram(x, valid)
+        r = histogram_reference(x, valid)
+        want = np.bincount(host[:valid], minlength=256)
+        if not (np.array_equal(k.cpu().numpy(), want) and np.array_equal(r.cpu().numpy(), want)):
+            fail(f"K1 histogram differs from np.bincount on {kind}")
+        err = max(err, max_abs_err(k, r))
+        if kind == "random":
+            for edge in (0, 1, 15, 16, 17):
+                if not np.array_equal(histogram(x, edge).cpu().numpy(),
+                                      np.bincount(host[:edge], minlength=256)):
+                    fail(f"K1 histogram differs from np.bincount at valid_len {edge}")
+        xs = copies(x)
+        kinds[kind] = {"ms": cuda_ms(lambda t: histogram(t, valid), xs, 24),
+                       "device_ms": graph_ms(lambda t: histogram(t, valid), xs, 48)}
+        if kind == "random":
+            plain_ms = cuda_ms(lambda t: histogram_reference(t, valid), xs, 6)
+            library_ms = cuda_ms(lambda t: torch.bincount(t[:valid], minlength=256), xs, 6)
+        del x, xs
     # the services' own K1 shape: the 1 KB availability probe
     probe = torch.from_numpy((np.arange(1024) % 251).astype(np.uint8)).cuda()
     if not torch.equal(histogram(probe, 1024), histogram_reference(probe, 1024)):
         fail("K1 histogram differs from the plain version on the 1 KB probe")
     if not GpuFrequencyService(cfg, "cuda").is_available():
         fail("the 1 KB histogram probe failed")
-    xs = copies(x)
-    res = {
-        "max_abs_err": max_abs_err(k, r),
-        "ms": cuda_ms(lambda t: histogram(t, valid), xs, 24),
-        "device_ms": graph_ms(lambda t: histogram(t, valid), xs, 48),
-        "plain_ms": cuda_ms(lambda t: histogram_reference(t, valid), xs, 6),
-        **bound(valid + 256 * 4, valid),
-        "library_ms": cuda_ms(lambda t: torch.bincount(t[:valid], minlength=256), xs, 6),
-    }
-    print(f"K1 histogram 16 MiB random: kernel {res['ms']} ms (device time alone "
-          f"{res['device_ms']} ms), plain {res['plain_ms']} "
-          f"ms, torch.bincount {res['library_ms']} ms, bound {res['bound_ms']} ms; "
-          f"equal to np.bincount; probe ok", flush=True)
+    res = {"max_abs_err": err, **kinds["random"], "plain_ms": plain_ms,
+           **bound(valid + 256 * 4, valid), "library_ms": library_ms, "kinds": kinds}
+    print("K1 histogram 16 MiB, ms (device time alone): "
+          + ", ".join(f"{kind} {t['ms']} ({t['device_ms']})" for kind, t in kinds.items())
+          + f"; on random plain {plain_ms} ms, torch.bincount {library_ms} ms, bound "
+          f"{res['bound_ms']} ms; equal to np.bincount on every kind and at valid_len "
+          f"0, 1, 15, 16, 17; probe ok", flush=True)
     return res
 
 
@@ -280,6 +299,8 @@ def check_short_tail() -> None:
 def codebook_histograms(corpus: np.ndarray) -> list:
     """(name, int32[256]) histograms for K4: the corpus's chunks, and others
     made from a numpy seed."""
+    from datacomp_tpu_torch.tools.ab_codec import fibonacci
+
     rng = np.random.default_rng(2)
     cases = [(f"chunk-{i // CHUNK}", np.bincount(corpus[i : i + CHUNK], minlength=256))
              for i in range(0, corpus.size, CHUNK)]
@@ -305,18 +326,25 @@ def codebook_histograms(corpus: np.ndarray) -> list:
     two[[7, 8]] = [5, 1 << 20]
     cases += [("one", one), ("two", two), ("empty", np.zeros(256, np.int64))]
     for depth in (20, 32, 40):
-        fib = np.zeros(256, np.int64)
-        a, b = 1, 1
-        for s in range(depth + 1):
-            fib[s] = a
-            a, b = b, a + b
-        cases.append((f"fibonacci-{depth}", fib))
+        cases.append((f"fibonacci-{depth}", fibonacci(depth)))
+    cases.append(("all-equal", np.full(256, 1 << 16, np.int64)))
+    # totals of a chunk of 2^31 - 1 bytes, and up to 2^32 - 2, where the
+    # kernel's 32-bit sums are still exact
+    top = (1 << 31) - 1
+    cases.append(("total-2^31-1", np.full(256, top // 256, np.int64)))
+    fib = fibonacci(40)
+    cases.append(("total-2^31-1-fibonacci-40", fib * (top // int(fib.sum()))))
+    near = np.zeros(256, np.int64)
+    near[[0, 1, 2]] = [top, top - 2, 2]
+    cases.append(("total-2^32-2", near))
     return [(name, h.astype(np.int32)) for name, h in cases]
+
 
 
 def check_codebook(corpus: np.ndarray) -> dict:
     from datacomp_tpu_torch.ops import codebook, codebook_reference
-    from datacomp_tpu_torch.tools import copies, cuda_ms
+    from datacomp_tpu_torch.tools import SHORT_PER_INPUT, copies, cuda_ms, graph_ms
+    from datacomp_tpu_torch.tools.ab_codec import fibonacci
 
     cases = codebook_histograms(corpus)
     err = 0
@@ -325,30 +353,41 @@ def check_codebook(corpus: np.ndarray) -> dict:
         h = torch.from_numpy(hist).cuda()
         kl, kc = codebook(h)
         rl, rc = codebook_reference(h)
-        depth = int(rl.max())
         if not torch.equal(kl.cpu(), rl.cpu()):
             fail(f"K4 {name}: kernel lengths differ from the plain version")
-        if depth <= 32 and not torch.equal(kc.cpu(), rc.cpu()):
+        if not torch.equal(kc.cpu(), rc.cpu()):
             fail(f"K4 {name}: kernel codes differ from the plain version")
-        err = max(err, max_abs_err(kl, rl), max_abs_err(kc, rc) if depth <= 32 else 0)
+        err = max(err, max_abs_err(kl, rl), max_abs_err(kc, rc))
         if name.startswith(("fibonacci", "chunk")):
-            depths[name] = depth
+            depths[name] = int(rl.max())
     if [depths[f"fibonacci-{d}"] for d in (20, 32, 40)] != [20, 32, 40]:
         fail(f"K4: Fibonacci depths {depths}")
     text = torch.from_numpy(cases[0][1]).cuda()  # the corpus's first chunk: text
+    fib = torch.from_numpy(fibonacci(32).astype(np.int32)).cuda()
+    zeros = torch.zeros(256, dtype=torch.int32, device="cuda")
     hs = copies(text)
+
+    def short_ms(fn, x):
+        return graph_ms(fn, copies(x), 48 * SHORT_PER_INPUT, SHORT_PER_INPUT)
+
     res = {
         "max_abs_err": err,
         "ms": cuda_ms(lambda t: codebook(t), hs, 200),
+        "device_ms": short_ms(codebook, text),
+        "device_ms_fibonacci_32": short_ms(codebook, fib),
+        # the cheapest one-block launch PyTorch makes on 256 elements, timed
+        # the same way: K4's yardstick, which bytes or operations are not
+        "launch_floor_ms": short_ms(lambda t: t.zero_(), zeros),
         "plain_ms": cuda_ms(lambda t: codebook_reference(t), hs, 20),
-        # 1 KB in, 2 KB out; a rank compare for each pair of symbols, twice
-        # (the sort and the canonical ranks)
-        **bound(256 * 4 * 3, 2 * 256 * 256),
+        # 1 KB in, 2 KB out; the sort's compares: 15 network stages and 48
+        # search steps a symbol
+        **bound(256 * 4 * 3, 256 * (15 + 48)),
         "library_ms": None,
     }
-    print(f"K4 codebook: {len(cases)} histograms, lengths equal everywhere and codes "
-          f"at depth <= 32; depths {depths}; text chunk kernel {res['ms']} ms, plain "
-          f"{res['plain_ms']} ms, bound {res['bound_ms']} ms", flush=True)
+    print(f"K4 codebook: {len(cases)} histograms, lengths and codes equal everywhere; "
+          f"depths {depths}; text chunk kernel {res['ms']} ms (device time alone "
+          f"{res['device_ms']} ms; Fibonacci-32 {res['device_ms_fibonacci_32']} ms; launch "
+          f"floor {res['launch_floor_ms']} ms), plain {res['plain_ms']} ms", flush=True)
     return res
 
 

@@ -5,10 +5,13 @@ The port's copy of ``datacomp_tpu/native``, held to the same bytes by
 
 The shared library is compiled on first use with g++ (cached in the
 package's ``_build/`` beside the CUDA kernels; rebuilt when the source is
-newer).  All entry points release the GIL
-during the call (plain ctypes), so the CPU service can parallelize across
-chunks with a thread pool — the same chunk-level parallelism the reference
-gets from its executor (``service/cpu/CpuCompressionService.java:42-44``).
+newer).  Several processes may share a checkout (test workers, the CLI), so
+the build holds a file lock, compiles to a file of its own and renames it onto
+the library's path: no process loads a half-written library.  All entry
+points release the GIL during the call (plain ctypes), so the CPU service can
+parallelize across chunks with a thread pool — the same chunk-level
+parallelism the reference gets from its executor
+(``service/cpu/CpuCompressionService.java:42-44``).
 
 If no C++ toolchain is available the package degrades to the numpy/pure-Python
 fallbacks in :mod:`datacomp_tpu_torch.core.bitio`; ``is_available()`` reports
@@ -18,6 +21,7 @@ which.
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import os
 import subprocess
 import threading
@@ -34,26 +38,42 @@ _lib = None
 _build_error: str | None = None
 
 
+def _stale() -> bool:
+    return not os.path.exists(_LIB_PATH) or os.path.getmtime(_LIB_PATH) < os.path.getmtime(_SRC)
+
+
 def _build() -> None:
+    """Compile the library unless another process did while this one waited
+    for the lock; the compiler writes a file of this process's own, which is
+    then renamed onto the library's path in one step."""
     os.makedirs(_BUILD_DIR, exist_ok=True)
-    cmd = [
-        "g++",
-        "-O3",
-        "-march=native",
-        "-funroll-loops",
-        "-std=c++17",
-        "-shared",
-        "-fPIC",
-        "-o",
-        _LIB_PATH,
-        _SRC,
-    ]
-    try:
-        subprocess.run(cmd, check=True, capture_output=True, text=True)
-        return
-    except subprocess.CalledProcessError:
-        cmd.remove("-march=native")  # fall back for toolchains without it
-    subprocess.run(cmd, check=True, capture_output=True, text=True)
+    with open(os.path.join(_BUILD_DIR, "native.lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)  # released when the file closes
+        if not _stale():
+            return
+        tmp = f"{_LIB_PATH}.{os.getpid()}.tmp"
+        cmd = [
+            "g++",
+            "-O3",
+            "-march=native",
+            "-funroll-loops",
+            "-std=c++17",
+            "-shared",
+            "-fPIC",
+            "-o",
+            tmp,
+            _SRC,
+        ]
+        try:
+            try:
+                subprocess.run(cmd, check=True, capture_output=True, text=True)
+            except subprocess.CalledProcessError:
+                cmd.remove("-march=native")  # fall back for toolchains without it
+                subprocess.run(cmd, check=True, capture_output=True, text=True)
+            os.replace(tmp, _LIB_PATH)
+        finally:
+            if os.path.exists(tmp):
+                os.remove(tmp)
 
 
 def _load():
@@ -62,7 +82,7 @@ def _load():
         if _lib is not None or _build_error is not None:
             return _lib
         try:
-            if not os.path.exists(_LIB_PATH) or os.path.getmtime(_LIB_PATH) < os.path.getmtime(_SRC):
+            if _stale():
                 _build()
             lib = ctypes.CDLL(_LIB_PATH)
             lib.dcz_histogram.argtypes = [

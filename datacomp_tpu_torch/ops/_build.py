@@ -40,7 +40,7 @@ _I64 = ctypes.c_int64
 _I32 = ctypes.c_int32
 #: C entry point -> argument types (every pointer and the stream: c_void_p)
 _SIGNATURES = {
-    "dcz_histogram": (_P, _I64, _P, _P),
+    "dcz_histogram": (_P, _I64, _P, _P, _I32, _P),
     "dcz_encode_tile_symbols": (),
     "dcz_encode": (_P, _I64, _I64, _P, _P, _P, _I64, _P, _I32, _P, _P),
     "dcz_decode": (_P, _I64, _P, _I64, _P, _P, _P, _I32, _I64, _P, _P, _P),

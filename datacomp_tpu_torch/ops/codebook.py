@@ -5,7 +5,9 @@ Counterpart of ``datacomp_tpu/ops/codebook.py::device_codebook``
 (``device_code_lengths`` then ``device_canonical_codes``), equal to it tie
 for tie: int32[256] lengths and uint32[256] canonical codes from an
 int32[256] histogram.  The lengths are optimal and uncapped; lengths above 32
-are exact, their codes meaningless.  The kernel is ``csrc/codebook.cu``.
+are exact, their codes meaningless.  The kernel is ``csrc/codebook.cu``; it
+carries weights in 32 bits, exact while the histogram's total is at most
+2^32 - 2 (any chunk below 2^31 bytes), where the plain version's are 64-bit.
 """
 
 from __future__ import annotations

@@ -1,5 +1,5 @@
 """Measurement tools of the port: the A/B harnesses of K1's variants
-(:mod:`.ab_histogram`) and of K2/K3 against another checkout
+(:mod:`.ab_histogram`) and of K1-K4 against another checkout
 (:mod:`.ab_codec`), and the timers that they and ``chip_smoke.py`` share:
 :func:`cuda_ms` (CUDA events around back-to-back calls, so a call whose host
 work outlasts its device work is timed by its host work) and
@@ -14,6 +14,9 @@ import torch
 #: copies of a timed op's inputs, cycled so that each call reads its input
 #: cold: 6 x 16 MiB is more than the H100's 50 MB L2
 COLD_COPIES = 6
+#: :func:`graph_ms`'s calls a graph on each input copy for a kernel of a few
+#: microseconds (K4, and its yardstick the launch floor)
+SHORT_PER_INPUT = 40
 
 
 def copies(*tensors: torch.Tensor) -> list:
@@ -38,32 +41,36 @@ def cuda_ms(fn, inputs: list, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def graph_ms(fn, inputs: list, reps: int) -> float:
-    """Mean device time of ``fn(*inputs[i % len(inputs)])``: each input copy's
-    call is captured once into a CUDA graph (all its kernels and fills), and
-    the graphs are replayed in turns ``reps`` times between CUDA events, so
-    the wrapper's host work is not in the time.  ``fn`` must be capturable:
-    no synchronisation and no copy to the host."""
+def graph_ms(fn, inputs: list, reps: int, per_input: int = 1) -> float:
+    """Mean device time of ``fn(*inputs[i % len(inputs)])``: the calls on
+    every input copy in turn, ``per_input`` times over, are captured into one
+    CUDA graph (all their kernels and fills), and the graph is replayed
+    between CUDA events until at least ``reps`` calls have run, so the
+    wrapper's host work is not in the time.  A kernel of a few microseconds
+    takes ``per_input`` > 1, so that the host's replays keep ahead of the
+    device.  ``fn`` must be capturable: no synchronisation and no copy to
+    the host."""
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
-    graphs = []
     with torch.cuda.stream(side):
-        for args in inputs:  # warm-up: builds and first-use work stay out of the graphs
+        for args in inputs:  # warm-up: builds and first-use work stay out of the graph
             fn(*args)
         side.synchronize()
-        for args in inputs:
-            g = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(g, stream=side):
-                fn(*args)
-            graphs.append(g)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=side):
+            for _ in range(per_input):
+                for args in inputs:
+                    fn(*args)
     torch.cuda.current_stream().wait_stream(side)
-    graphs[-1].replay()
+    graph.replay()
     torch.cuda.synchronize()
+    calls = per_input * len(inputs)
+    replays = -(-reps // calls)
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
-    for i in range(reps):
-        graphs[i % len(graphs)].replay()
+    for _ in range(replays):
+        graph.replay()
     end.record()
     end.synchronize()
-    return start.elapsed_time(end) / reps
+    return start.elapsed_time(end) / (replays * calls)

@@ -1,5 +1,6 @@
-"""A/B harness of K2 (encode) and K3 (decode) on one CUDA device: this
-checkout against another.
+"""A/B harness of the codec's kernels K1 (histogram), K2 (encode), K3
+(decode) and K4 (codebook) on one CUDA device: this checkout against
+another.
 
     python -m datacomp_tpu_torch.tools.ab_codec [size_mb] [--checkout DIR]
 
@@ -9,17 +10,30 @@ unpacked by ``git archive`` into a git-ignored directory of this one
 checkout first on the path, in turns DIR, this, this, DIR (without DIR:
 this, this); a turn builds its side's kernels into that checkout's
 ``datacomp_tpu_torch/_build/`` and uses only the ops' public calls, which
-both sides share, timed by this checkout's :func:`..tools.graph_ms`.
+both sides share, timed by this checkout's :func:`..tools.graph_ms` (the
+device time of a call: CUDA graphs replayed between CUDA events, the
+wrappers' fills included, cycling through copies of the inputs that
+together exceed L2).
 
-For each input kind (``text``, ``skewed``, ``compressible`` from
-``utils.testdata``) at ``size_mb`` MiB (16 by default) with the v2 codebook
-(``fast``, auto cap) and 4032-symbol sub-blocks, a turn holds the encode to
-its plain version and the decode to the input, then times each as the device
-time of a call (CUDA graphs replayed between CUDA events, the encode's
-zero-fill included), cycling through copies of the inputs that together
-exceed L2.  One JSON line a side and kind: ``{"side", "kind", "encode_ms",
-"decode_ms", "exact"}`` with the mean of the side's two turns.  It exits 1
-when a side is not exact, and needs a CUDA device.
+At ``size_mb`` MiB (16 by default) a turn times
+
+- K1 on ``random``, ``text``, ``skewed``, ``compressible`` and ``zeros`` (one
+  byte repeated) from ``utils.testdata``, each held to ``np.bincount``;
+- K2 and K3 on ``text``, ``skewed`` and ``compressible`` with the v2 codebook
+  (``fast``, auto cap) and 4032-symbol sub-blocks, the encode held to its
+  plain version and the decode to the input;
+- K4 on the histograms of the ``text``, ``skewed`` and ``compressible``
+  chunks, on Fibonacci counts of depth 32 (one merge pair a round), on 256
+  equal counts and on one symbol, held to its plain version (lengths and
+  codes); and, as K4's yardstick, the launch floor: ``zero_()`` of a
+  256-element tensor, the cheapest one-block launch PyTorch makes, timed the
+  same way.  K4 and the floor run many calls a graph
+  (``tools.SHORT_PER_INPUT``), so that the host's replays keep ahead of the
+  device.
+
+One JSON line a side, kernel and case: ``{"side", "kernel", "case", "ms",
+"exact"}`` with the mean of the side's two turns.  It exits 1 when a side is
+not exact, and needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -33,7 +47,8 @@ import sys
 import numpy as np
 import torch
 
-KINDS = ("text", "skewed", "compressible")
+HIST_KINDS = ("random", "text", "skewed", "compressible", "zeros")
+CODEC_KINDS = ("text", "skewed", "compressible")
 SUBBLOCK = 4032
 REPS = 48
 _HERE = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
@@ -50,9 +65,30 @@ def _timers():
     return mod
 
 
+def fibonacci(depth: int) -> np.ndarray:
+    """Counts 1, 1, 2, 3, 5, ... on symbols 0..depth: an optimal code that
+    deep, whose merge pairs one node at a time."""
+    fib = np.zeros(256, np.int64)
+    a, b = 1, 1
+    for s in range(depth + 1):
+        fib[s] = a
+        a, b = b, a + b
+    return fib
+
+
+def codebook_cases(chunks: dict) -> dict:
+    """name -> int32[256] histogram for K4: the chunks' and three shapes."""
+    cases = {kind: np.bincount(chunks[kind], minlength=256) for kind in CODEC_KINDS}
+    one = np.zeros(256, np.int64)
+    one[65] = 1 << 24
+    cases.update({"fibonacci-32": fibonacci(32), "all-equal": np.full(256, 1 << 16),
+                  "one": one})
+    return {name: h.astype(np.int32) for name, h in cases.items()}
+
+
 def measure(size_mb: int) -> list:
     """One turn with whichever ``datacomp_tpu_torch`` is first on the path:
-    ``[{"kind", "encode_ms", "decode_ms", "exact"}]``."""
+    ``[{"kernel", "case", "ms", "exact"}]``."""
     from datacomp_tpu_torch import ops
     from datacomp_tpu_torch.core.huffman import build_codebook
     from datacomp_tpu_torch.utils.testdata import generate_bytes
@@ -61,9 +97,26 @@ def measure(size_mb: int) -> list:
     n = size_mb << 20
     out_words = (9 * n + 31) // 32 + 2
     nsub = -(-n // SUBBLOCK)
+    chunks = {kind: np.frombuffer(generate_bytes(kind, n), np.uint8) for kind in HIST_KINDS}
     rows = []
-    for kind in KINDS:
-        data = np.frombuffer(generate_bytes(kind, n), np.uint8)
+
+    def row(kernel, case, ms, exact):
+        rows.append({"kernel": kernel, "case": case, "ms": ms, "exact": bool(exact)})
+
+    def short_ms(fn, x):
+        per = timers.SHORT_PER_INPUT
+        return timers.graph_ms(fn, timers.copies(x), REPS * per, per)
+
+    for kind in HIST_KINDS:
+        data = chunks[kind]
+        x = torch.from_numpy(data.copy()).cuda()
+        exact = np.array_equal(ops.histogram(x, n).cpu().numpy(),
+                               np.bincount(data, minlength=256))
+        row("histogram", kind, timers.graph_ms(lambda t: ops.histogram(t, n),
+                                               timers.copies(x), REPS), exact)
+        del x
+    for kind in CODEC_KINDS:
+        data = chunks[kind]
         lengths, codes = build_codebook(np.bincount(data, minlength=256), mode="fast",
                                         max_len=-1)
         x = torch.from_numpy(data.copy()).cuda()
@@ -77,17 +130,24 @@ def measure(size_mb: int) -> list:
         gaps = rg[:nsub].contiguous()
         tables = ops.decode_tables_to_torch(*ops.build_decode_tables(lengths), "cuda")
         kd = ops.decode(words, gaps, *tables, SUBBLOCK, n)
-        exact = bool(int(ktb) == tb and torch.equal(kw[:live].cpu(), rw[:live].cpu())
-                     and torch.equal(kg.cpu(), rg.cpu())
-                     and np.array_equal(kd.cpu().numpy(), data))
-        rows.append({
-            "kind": kind,
-            "encode_ms": timers.graph_ms(lambda t: ops.encode(t, n, lt, ct, out_words, SUBBLOCK),
-                                         timers.copies(x), REPS),
-            "decode_ms": timers.graph_ms(lambda w, g: ops.decode(w, g, *tables, SUBBLOCK, n),
-                                         timers.copies(words, gaps), REPS),
-            "exact": exact,
-        })
+        row("encode", kind,
+            timers.graph_ms(lambda t: ops.encode(t, n, lt, ct, out_words, SUBBLOCK),
+                            timers.copies(x), REPS),
+            int(ktb) == tb and torch.equal(kw[:live].cpu(), rw[:live].cpu())
+            and torch.equal(kg.cpu(), rg.cpu()))
+        row("decode", kind,
+            timers.graph_ms(lambda w, g: ops.decode(w, g, *tables, SUBBLOCK, n),
+                            timers.copies(words, gaps), REPS),
+            np.array_equal(kd.cpu().numpy(), data))
+        del x, kw, rw, words
+    for name, hist in codebook_cases(chunks).items():
+        h = torch.from_numpy(hist).cuda()
+        kl, kc = ops.codebook(h)
+        rl, rc = ops.codebook_reference(h)
+        row("codebook", name, short_ms(ops.codebook, h),
+            torch.equal(kl.cpu(), rl.cpu()) and torch.equal(kc.cpu(), rc.cpu()))
+    row("launch floor", "zero_",
+        short_ms(lambda t: t.zero_(), torch.zeros(256, dtype=torch.int32, device="cuda")), True)
     return rows
 
 
@@ -107,12 +167,10 @@ def run(size_mb: int = 16, checkout: str | None = None, emit=print) -> list:
         results[name].append(_turn_in(sides[name], size_mb))
     records = []
     for name in names:
-        for i, kind in enumerate(KINDS):
-            a, b = (turn[i] for turn in results[name])
-            rec = {"side": name, "kind": kind,
-                   "encode_ms": (a["encode_ms"] + b["encode_ms"]) / 2,
-                   "decode_ms": (a["decode_ms"] + b["decode_ms"]) / 2,
-                   "exact": a["exact"] and b["exact"]}
+        first, second = results[name]
+        for a, b in zip(first, second):
+            rec = {"side": name, "kernel": a["kernel"], "case": a["case"],
+                   "ms": (a["ms"] + b["ms"]) / 2, "exact": a["exact"] and b["exact"]}
             emit(json.dumps(rec))
             records.append(rec)
     return records

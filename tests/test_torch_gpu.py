@@ -3,14 +3,17 @@ at small edge-case shapes (ragged lengths, ``valid_len`` masks, one-symbol,
 16-bit and 32-bit codebooks, dropped writes, short last sub-blocks), and the
 GPU service's output against the host codec's.  Exact equality throughout.
 
-Also K4 (the codebook) and K1's A/B variants against their plain versions,
-K2 on a codebook deeper than 32 bits, and one 16 MiB chunk through the
-device-codebook mode.  K3's warp-per-sub-block schedule at every code depth
-from 1 to 16, on a fixed-length code (no sync round), on the periodic
-``compressible`` text, at sub-blocks of 32 and 65 536 symbols (the second
-beyond the per-warp buffers), with a 1-symbol last sub-block, and on random
-streams (no fault, ``n_out`` bytes back); K2's single pass with tiles that
-start and end mid-word and ``out_words`` cut inside a tile.
+Also K4 (the codebook, lengths and codes, on corpus chunks, Fibonacci
+counts, ties, fuzz and totals up to 2^32 - 2) and K1's A/B variants against
+their plain versions, K1 on five input kinds with every ``valid_len`` edge
+and past 2^24 bytes and counts, K2 on a codebook deeper than 32 bits, and
+one 16 MiB chunk through the device-codebook mode (K1 → K4 → K2). K3's
+warp-per-sub-block schedule at every code depth from 1 to 16, on a
+fixed-length code (no sync round), on the periodic ``compressible`` text, at
+sub-blocks of 32 and 65 536 symbols (the second beyond the per-warp
+buffers), with a 1-symbol last sub-block, and on random streams (no fault,
+``n_out`` bytes back); K2's single pass with tiles that start and end
+mid-word and ``out_words`` cut inside a tile.
 
 Marked ``gpu``: every test skips without a CUDA device.  On a machine with
 one (and no jax, which ``tests/conftest.py`` imports):
@@ -72,6 +75,28 @@ def test_histogram_kernel_matches_plain(cuda, n, valid_len, kind):
     got = ops.histogram(x, valid_len)
     assert _same(got, ops.histogram_reference(x, valid_len))
     assert np.array_equal(got.cpu().numpy(), np.bincount(host[:valid_len], minlength=256))
+
+
+@pytest.mark.parametrize("valid_len", [0, 1, 15, 16, 17, 99_999])
+@pytest.mark.parametrize("kind", ["random", "text", "skewed", "compressible", "zeros"])
+def test_histogram_kernel_kinds_and_valid_len_edges(cuda, kind, valid_len):
+    host = np.frombuffer(generate_bytes(kind, 100_000), np.uint8)
+    got = ops.histogram(torch.from_numpy(host.copy()).to(cuda), valid_len)
+    assert np.array_equal(got.cpu().numpy(), np.bincount(host[:valid_len], minlength=256))
+
+
+@pytest.mark.parametrize("kind", ["random", "one_byte"])
+def test_histogram_kernel_beyond_2_24_bytes(cuda, kind):
+    """Counts past 2^24 in one bin (16 MiB of one byte: every lane's copy of
+    the bin in every block counts it), and a chunk longer than 2^24 bytes."""
+    if kind == "one_byte":
+        host = np.full(16 << 20, 200, np.uint8)
+    else:
+        host = np.random.default_rng(24).integers(0, 256, (1 << 24) + 4099).astype(np.uint8)
+    x = torch.from_numpy(host).to(cuda)
+    for valid_len in (host.size, host.size - 12_345):
+        got = ops.histogram(x, valid_len)
+        assert np.array_equal(got.cpu().numpy(), np.bincount(host[:valid_len], minlength=256))
 
 
 @pytest.mark.parametrize("kind", ["text", "skewed", "one_symbol", "depth16", "depth32"])
@@ -272,7 +297,9 @@ def test_service_matches_host_codec(cuda, tmp_path):
 
 
 _CODEBOOK_CASES = ["empty", "all_equal", "one", "two", "fib20", "fib32", "fib40",
-                   *(f"random{i}" for i in range(8)), "text", "skewed", "compressible"]
+                   *(f"random{i}" for i in range(8)), "text", "skewed", "compressible",
+                   "text16", "skewed16", "compressible16", "total31", "total31fib",
+                   "total32"]
 
 
 def _codebook_histogram(name: str) -> np.ndarray:
@@ -294,8 +321,18 @@ def _codebook_histogram(name: str) -> np.ndarray:
         rng = np.random.default_rng(i)
         k = int(rng.integers(1, 257))
         hist[rng.choice(256, k, replace=False)] = rng.integers(1, 1 << (2 + 3 * i), k)
+    elif name.startswith("total"):  # a 2^31 - 1 byte chunk's totals, and 2^32 - 2
+        top = (1 << 31) - 1
+        if name == "total31":
+            hist[:] = top // 256
+        elif name == "total31fib":
+            fib = _codebook_histogram("fib40").astype(np.int64)
+            hist[:] = fib * (top // int(fib.sum()))
+        else:
+            hist[[0, 1, 2]] = [top, top - 2, 2]
     elif name != "empty":
-        data = np.frombuffer(generate_bytes(name, 1 << 20), np.uint8)
+        size = 16 << 20 if name.endswith("16") else 1 << 20
+        data = np.frombuffer(generate_bytes(name.removesuffix("16"), size), np.uint8)
         hist = np.bincount(data, minlength=256).astype(np.int32)
     return hist
 
@@ -306,11 +343,28 @@ def test_codebook_kernel_matches_plain(cuda, name):
     kl, kc = ops.codebook(h)
     rl, rc = ops.codebook_reference(h)
     assert _same(kl, rl)
-    if int(rl.max()) <= 32:
-        assert _same(kc, rc)
-        if rl.any():
-            assert np.array_equal(kc.cpu().numpy(),
-                                  canonical_codes_from_lengths(kl.cpu().numpy()))
+    assert _same(kc, rc)  # at any depth: past 32 bits the meaningless codes agree too
+    if int(rl.max()) <= 32 and rl.any():
+        assert np.array_equal(kc.cpu().numpy(), canonical_codes_from_lengths(kl.cpu().numpy()))
+
+
+@pytest.mark.parametrize("seed", range(6))
+def test_codebook_kernel_fuzz(cuda, seed):
+    """Random symbol subsets, many with heavy ties, counts up to 2^26."""
+    rng = np.random.default_rng(100 + seed)
+    for _ in range(20):
+        k = int(rng.integers(0, 257))
+        top = max(1, min(int(rng.choice([1, 2, 3, 17, 1000, 1 << 16, 1 << 26])),
+                         ((1 << 30) - 1) // max(k, 1)))
+        vals = rng.integers(1, top + 1, k)
+        if k and rng.random() < 0.4:
+            vals = rng.choice(vals[: max(1, k // 8)], k)
+        hist = np.zeros(256, np.int32)
+        hist[rng.choice(256, k, replace=False)] = vals
+        h = torch.from_numpy(hist).to(cuda)
+        kl, kc = ops.codebook(h)
+        rl, rc = ops.codebook_reference(h)
+        assert _same(kl, rl) and _same(kc, rc)
 
 
 @pytest.mark.parametrize("n,valid_len", [
