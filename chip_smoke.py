@@ -28,8 +28,12 @@
    launch floor (``zero_()`` of 256 elements, timed the same way).
 5. K1's A/B variants K1s and K1p through their entry point, the harness
    ``datacomp_tpu_torch.tools.ab_histogram``, on 16 MiB ``random`` and
-   ``skewed`` input with ``valid_len = n - 12345``; then each configuration
-   against ``np.bincount`` and the plain version.
+   ``skewed`` input with ``valid_len = n - 12345`` (events and device time);
+   then K1s in each of ``ops.STACKED``'s configurations and K1p for each
+   ``k`` in 1, 2, 3, 4, 5, 8 and 64 against ``np.bincount`` and the plain
+   version on the five kinds of phase 2 and at ``valid_len`` 0, 1, 15, 16
+   and 17.  No codec path calls them: their ``launches`` are the harness's,
+   and ``codec_path_launches`` (0) those of phases 6-8.
 6. The fast path: ``bench.py``'s 128 MB mixed corpus (text, compressible,
    skewed, random) through the port's CLI, ``compress --format 2
    --codebook-mode fast --no-verify`` in 16 MiB chunks, then ``decompress``,
@@ -53,7 +57,7 @@ Kernel, plain and library times are taken with CUDA events after a warm-up,
 cycling through copies of the inputs that together exceed the L2 cache, so
 that each call reads its input cold: back-to-back calls, so a call whose
 wrapper's host work outlasts its device work is timed by the host work.
-K1, K2, K3 and K4 also get ``device_ms``, the device time alone: the same
+Every kernel also gets ``device_ms``, the device time alone: the same
 calls captured into a CUDA graph and replayed (``tools.graph_ms``; K4 and its
 launch floor 40 calls a graph on each input copy), and K2 the time of its
 wrapper's zero-fill alone, also replayed.  The launch counts of the kernels line
@@ -88,6 +92,7 @@ K3_WARP_WORDS = 1024  # csrc/decode.cu's kWarpWords: a larger sub-block takes th
 CORPUS_MB = 128  # bench.py's default corpus
 TAIL = 12345  # bytes that valid_len leaves out of the histogram inputs
 HIST_KINDS = ("random", "text", "skewed", "compressible", "zeros")  # K1's inputs
+VARIANT_K = (1, 2, 3, 4, 5, 8, 64)  # K1p's stripe counts checked (3, 5, 64: uneven stripes)
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (NVIDIA data sheet)
 # the H100's non-tensor float32 rate, taken as the ceiling of the integer
 # and compare instructions these kernels are made of
@@ -393,11 +398,12 @@ def check_codebook(corpus: np.ndarray) -> dict:
 
 def check_variants() -> dict:
     """K1s and K1p through their entry point, the A/B harness, with the
-    counts set to 0 before it; then every configuration against np.bincount
-    and the plain version."""
+    counts set to 0 before it; then every configuration (and ``k`` in
+    ``VARIANT_K``) on each of ``HIST_KINDS`` and at the ``valid_len`` edges,
+    against np.bincount and the plain version."""
     from datacomp_tpu_torch.ops import (
-        COUNTERS, PARTIAL_K, STACKED, histogram_partial, histogram_reference,
-        histogram_stacked, reset_counters,
+        COUNTERS, STACKED, histogram_partial, histogram_reference, histogram_stacked,
+        reset_counters,
     )
     from datacomp_tpu_torch.tools import ab_histogram
     from datacomp_tpu_torch.utils.testdata import generate_bytes
@@ -409,30 +415,32 @@ def check_variants() -> dict:
                 for name in ("histogram_stacked", "histogram_partial")}
     if not all(r["exact"] for r in records):
         fail(f"a histogram variant differs from np.bincount: {records}")
-    valid = CHUNK - TAIL
     err = {"histogram_stacked": 0, "histogram_partial": 0}
-    for kind in ("random", "skewed"):
+    for kind in HIST_KINDS:
         host = np.frombuffer(generate_bytes(kind, CHUNK), np.uint8)
-        want = np.bincount(host[:valid], minlength=256)
         x = torch.from_numpy(host.copy()).cuda()
-        plain = histogram_reference(x, valid)
-        if not np.array_equal(plain.cpu().numpy(), want):
-            fail(f"the plain histogram differs from np.bincount on {kind}")
-        runs = [("histogram_stacked", histogram_stacked(x, valid, g, b))
-                for g, b in STACKED.values()]
-        runs += [("histogram_partial", histogram_partial(x, valid, k)) for k in PARTIAL_K]
-        for name, got in runs:
-            if not torch.equal(got.cpu(), plain.cpu()):
-                fail(f"{name} differs from the plain version on {kind}")
-            err[name] = max(err[name], max_abs_err(got, plain))
-    ms = {(r["variant"], r["kind"]): r["ms"] for r in records}
-    print("K1 variants, 16 MiB, ms cold (K1 | torch.bincount | stacked stacked8 "
-          "stacked-i16 | partial-k1 k2 k4 k8):", flush=True)
+        for valid in (CHUNK - TAIL, *((0, 1, 15, 16, 17) if kind == "random" else ())):
+            want = np.bincount(host[:valid], minlength=256)
+            plain = histogram_reference(x, valid)
+            if not np.array_equal(plain.cpu().numpy(), want):
+                fail(f"the plain histogram differs from np.bincount on {kind}")
+            runs = [("histogram_stacked", f"groups {g}, {b}-bit",
+                     histogram_stacked(x, valid, g, b)) for g, b in STACKED.values()]
+            runs += [("histogram_partial", f"k = {k}", histogram_partial(x, valid, k))
+                     for k in VARIANT_K]
+            for name, config, got in runs:
+                if not torch.equal(got.cpu(), plain.cpu()):
+                    fail(f"{name} ({config}) differs from the plain version on {kind} at "
+                         f"valid_len {valid}")
+                err[name] = max(err[name], max_abs_err(got, plain))
+        del x
+    ms = {(r["variant"], r["kind"]): r for r in records}
+    print("K1 variants, 16 MiB, ms cold by events (device time alone); equal to np.bincount "
+          f"and the plain version on {', '.join(HIST_KINDS)} and at valid_len 0, 1, 15, 16, "
+          f"17, with k in {VARIANT_K}:", flush=True)
     for kind in ("random", "skewed"):
-        row = [ms["histogram", kind], ms["torch.bincount", kind]]
-        row += [ms[name, kind] for name in STACKED]
-        row += [ms[f"partial-k{k}", kind] for k in PARTIAL_K]
-        print(f"  {kind}: {row}", flush=True)
+        print(f"  {kind}: " + ", ".join(f"{name} {r['ms']} ({r['device_ms']})"
+                                        for (name, k), r in ms.items() if k == kind), flush=True)
     return {"launches": launches, "max_abs_err": err, "ms": ms}
 
 
@@ -621,7 +629,7 @@ def main() -> int:
         variants = check_variants()
         fast = run_fast_path(d, src)
         dev2 = run_device_v2(d, src)
-        run_device_v1(d, src)
+        dev1 = run_device_v1(d, src)
     jax_side = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "datacomp_tpu"))
     if jax_side:
         fail(f"jax or the JAX package was imported: {jax_side}")
@@ -632,11 +640,13 @@ def main() -> int:
 
     def variant(name: str, config: str) -> dict:
         return {"name": name, "route": "cuda", "source": source.format("histogram_variants"),
-                "launches": variants["launches"][name],
+                # the A/B harness's count: no codec path calls the variants
+                "launches": variants["launches"][name], "launches_counted_in": "ab_histogram",
+                "codec_path_launches": sum(r["launches"][name] for r in (fast, dev2, dev1)),
                 "max_abs_err": variants["max_abs_err"][name], "config": config,
-                "ms": ms[config, "random"], "plain_ms": hist["plain_ms"],
-                **bound(valid + 256 * 4, valid),
-                "library_ms": ms["torch.bincount", "random"]}
+                "ms": ms[config, "random"]["ms"], "device_ms": ms[config, "random"]["device_ms"],
+                "plain_ms": hist["plain_ms"], **bound(valid + 256 * 4, valid),
+                "library_ms": ms["torch.bincount", "random"]["ms"]}
 
     kernels = [
         {"name": "histogram", "route": "cuda", "source": source.format("histogram"),

@@ -26,94 +26,24 @@
 // no global atomics remain.  The second kernel is a programmatic dependent
 // launch: the first lets it start at once, and it waits on the first's
 // completion inside (griddepcontrol), so its launch overlaps the counting.
+// The counting core and the summing kernel live in histogram_core.cuh, which
+// K1p (histogram_variants.cu) shares; K1s shares the summing kernel.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "histogram_core.cuh"
 
 namespace {
-
-constexpr int kThreads = 1024;
-constexpr int kLanes = 32;
-constexpr int kBins = 256;
-constexpr int kUnroll = 4;  // 16-byte loads in flight a thread
-constexpr unsigned kFull = 0xFFFFFFFFu;
-// the summing kernel: kSumBlocks blocks of 32 bins, 32 row groups a block
-constexpr int kSumBlocks = kBins / kLanes;
-constexpr int kSumGroups = 32;
-
-__device__ __forceinline__ void count_word(uint32_t* lane_bins, uint32_t w) {
-  atomicAdd(&lane_bins[(w & 0xFF) * kLanes], 1u);
-  atomicAdd(&lane_bins[((w >> 8) & 0xFF) * kLanes], 1u);
-  atomicAdd(&lane_bins[((w >> 16) & 0xFF) * kLanes], 1u);
-  atomicAdd(&lane_bins[(w >> 24) * kLanes], 1u);
-}
-
-__device__ __forceinline__ void count_vec(uint32_t* lane_bins, const uint4& q) {
-  count_word(lane_bins, q.x);
-  count_word(lane_bins, q.y);
-  count_word(lane_bins, q.z);
-  count_word(lane_bins, q.w);
-}
 
 __global__ void __launch_bounds__(kThreads)
 histogram_kernel(const uint8_t* __restrict__ data, int64_t valid_len,
                  int* __restrict__ partial) {
-  __shared__ uint32_t bins[kBins * kLanes];  // bin b of lane l at b * 32 + l
+  __shared__ uint32_t bins[kBins * kLanes];
   asm volatile("griddepcontrol.launch_dependents;");  // the summing kernel may start
-  for (int i = threadIdx.x; i < kBins * kLanes; i += kThreads) bins[i] = 0;
-  __syncthreads();
-
-  uint32_t* mine = bins + (threadIdx.x & (kLanes - 1));
-  const int64_t nvec = valid_len / 16;  // whole 16-byte vectors below valid_len
-  const uint4* vec = reinterpret_cast<const uint4*>(data);
+  uint32_t* mine = lane_bins_init(bins);
   const int64_t stride = (int64_t)gridDim.x * kThreads;
-  int64_t v = (int64_t)blockIdx.x * kThreads + threadIdx.x;
-  for (; v + (kUnroll - 1) * stride < nvec; v += kUnroll * stride) {
-    uint4 q[kUnroll];
-#pragma unroll
-    for (int k = 0; k < kUnroll; ++k) q[k] = __ldcs(vec + v + k * stride);
-#pragma unroll
-    for (int k = 0; k < kUnroll; ++k) count_vec(mine, q[k]);
-  }
-  for (; v < nvec; v += stride) count_vec(mine, __ldcs(vec + v));
-  // the ragged tail: fewer than 16 bytes, taken by block 0
-  if (blockIdx.x == 0 && threadIdx.x < (valid_len & 15)) {
-    atomicAdd(&mine[data[nvec * 16 + threadIdx.x] * kLanes], 1u);
-  }
-  __syncthreads();
-
-  // fold: four threads a bin, each summing 8 lanes' copies (rotated by the
-  // bin, so that a warp's reads fall on 32 banks), then across the four
-  const int bin = threadIdx.x >> 2;
-  const int part = threadIdx.x & 3;
-  uint32_t s = 0;
-#pragma unroll
-  for (int k = 0; k < 8; ++k) s += bins[bin * kLanes + part * 8 + ((k + bin) & 7)];
-  s += __shfl_xor_sync(kFull, s, 1);
-  s += __shfl_xor_sync(kFull, s, 2);
-  if (part == 0) partial[(int64_t)blockIdx.x * kBins + bin] = (int)s;
-}
-
-// hist[b] = sum of partial[r * 256 + b] over the rows r < rows.  Block k
-// takes bins 32k .. 32k+31; its 32 warps take every 32nd row (about four
-// each, all loads in flight), each lane a bin.
-__global__ void __launch_bounds__(kLanes * kSumGroups)
-histogram_sum_kernel(const int* __restrict__ partial, int rows, int* __restrict__ hist) {
-  __shared__ int group_s[kSumGroups][kLanes];
-  const int lane = threadIdx.x & (kLanes - 1);
-  const int group = threadIdx.x / kLanes;
-  const int bin = blockIdx.x * kLanes + lane;
-  asm volatile("griddepcontrol.wait;" ::: "memory");  // every row written and visible
-  int s = 0;
-#pragma unroll 8
-  for (int r = group; r < rows; r += kSumGroups) s += partial[(int64_t)r * kBins + bin];
-  group_s[group][lane] = s;
-  __syncthreads();
-  if (group == 0) {
-#pragma unroll
-    for (int g = 1; g < kSumGroups; ++g) s += group_s[g][lane];
-    hist[bin] = s;
-  }
+  count_vectors(mine, reinterpret_cast<const uint4*>(data),
+                (int64_t)blockIdx.x * kThreads + threadIdx.x, valid_len / 16, stride);
+  if (blockIdx.x == 0) count_tail(mine, data, valid_len);
+  fold_lane_bins(bins, partial + (int64_t)blockIdx.x * kBins);
 }
 
 }  // namespace
@@ -130,19 +60,8 @@ extern "C" int dcz_histogram(const void* data, int64_t valid_len, void* hist, vo
   cudaStream_t s = (cudaStream_t)stream;
   histogram_kernel<<<(unsigned)blocks, kThreads, 0, s>>>(
       static_cast<const uint8_t*>(data), valid_len, static_cast<int*>(partial));
-  const cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  cudaLaunchAttribute early;
-  early.id = cudaLaunchAttributeProgrammaticStreamSerialization;
-  early.val.programmaticStreamSerializationAllowed = 1;
-  cudaLaunchConfig_t sum = {};
-  sum.gridDim = dim3(kSumBlocks);
-  sum.blockDim = dim3(kLanes * kSumGroups);
-  sum.stream = s;
-  sum.attrs = &early;
-  sum.numAttrs = 1;
-  return (int)cudaLaunchKernelEx(&sum, histogram_sum_kernel, static_cast<const int*>(partial),
-                                 (int)blocks, static_cast<int*>(hist));
+  return launch_histogram_sum(static_cast<const int*>(partial), (int)blocks,
+                              static_cast<int*>(hist), s);
 }
 
 // Message for a code returned by any dcz_* entry point (all sources link

@@ -5,8 +5,9 @@ The kernels in ``csrc/*.cu`` are compiled with ``nvcc`` for Hopper
 and bound with :mod:`ctypes`: no PyTorch headers, so the build takes seconds.
 Each source compiles in its own ``nvcc``, all started together, and one more
 call links the objects.
-The library's file name carries a hash of the sources and flags, so an edited
-source rebuilds.  The pipeline calls the codec from several worker threads and
+The library's file name carries a hash of the sources, the headers they
+include (``csrc/*.cuh``) and the flags, so an edited source or header
+rebuilds.  The pipeline calls the codec from several worker threads and
 several processes may share a checkout, so the build sits behind a thread lock
 and a file lock.
 
@@ -18,6 +19,7 @@ from __future__ import annotations
 
 import ctypes
 import fcntl
+import glob
 import hashlib
 import os
 import shutil
@@ -45,8 +47,9 @@ _SIGNATURES = {
     "dcz_encode": (_P, _I64, _I64, _P, _P, _P, _I64, _P, _I32, _P, _P),
     "dcz_decode": (_P, _I64, _P, _I64, _P, _P, _P, _I32, _I64, _P, _P, _P),
     "dcz_codebook": (_P, _P, _P, _P),
-    "dcz_histogram_stacked": (_P, _I64, _I32, _I32, _P, _P),
-    "dcz_histogram_partial": (_P, _I64, _I32, _P, _P),
+    "dcz_histogram_stacked_rows": (_I32, _P),
+    "dcz_histogram_stacked": (_P, _I64, _I32, _I32, _P, _P, _I32, _P),
+    "dcz_histogram_partial": (_P, _I64, _I32, _P, _P, _I32, _P),
 }
 
 _lock = threading.Lock()
@@ -81,7 +84,8 @@ def _nvcc() -> str:
 
 def library_path() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
+    headers = sorted(os.path.basename(p) for p in glob.glob(os.path.join(CSRC, "*.cuh")))
+    for name in (*SOURCES, *headers):
         h.update(name.encode())
         with open(os.path.join(CSRC, name), "rb") as f:
             h.update(f.read())

@@ -2,20 +2,32 @@
 
 * K1s :func:`histogram_stacked`, counterpart of the kernel that
   ``tools/ab_hist_pallas_r3.py::make_stacked`` builds: private narrow
-  counters a thread, folded into the block's bins every ``groups`` x 16 bytes
-  a thread.  r3's ``stacked``, ``stacked8`` and ``stacked-i16`` are
+  counters a thread, folded by its warp every ``groups`` x 16 bytes a thread.
+  r3's ``stacked``, ``stacked8`` and ``stacked-i16`` are
   ``(groups, counter_bits)`` = (16, 8), (8, 8) and (16, 16): :data:`STACKED`.
 * K1p :func:`histogram_partial`, counterpart of
   ``tools/ab_hist_pallas_r4.py::hist_partial`` (``kernel_2d``): ``k`` stripes
-  of blocks, each with its own row of partial sums, added afterwards.
+  of blocks, each over its own 1/k of the chunk, counting with K1's
+  lane-banked core.
+
+On the H100 K1p is bound, as K1 is, by one read of the chunk and the SMs'
+rate of shared atomics, one a byte; K1s by its instructions a byte (the
+field arithmetic and a private shared load-add-store) and the fold's reads.
+Both write a
+row a block into a scratch from ``torch.empty`` and a programmatically
+dependent launch sums the rows: nothing is zero-filled, no global atomics,
+no ``torch`` reduction.  The kernels are ``csrc/histogram_variants.cu`` on
+``csrc/histogram_core.cuh``.
 
 Both return what :func:`~.histogram.histogram` returns, and
-:func:`~.histogram.histogram_reference` (``torch.bincount``) is their plain
-version.  They are timed against K1 by ``datacomp_tpu_torch.tools.ab_histogram``;
-the codec never calls them.  The kernels are ``csrc/histogram_variants.cu``.
+:func:`~.histogram.bincount` is their plain version.  They are timed against
+K1 by ``datacomp_tpu_torch.tools.ab_histogram`` and ``tools.ab_codec``; the
+codec never calls them.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -48,11 +60,17 @@ def histogram_stacked(data: torch.Tensor, valid_len: int, groups: int = 16,
     if check_args(data, valid_len):
         stacked_reference_calls.add()
         return bincount(data, valid_len)
-    hist = torch.zeros(256, dtype=torch.int32, device=data.device)
     lib = _build.library()
     with torch.cuda.device(data.device):
+        # the scratch: a row for each block resident at once on the device
+        rows = ctypes.c_int(0)
+        _build.check(lib.dcz_histogram_stacked_rows(counter_bits, ctypes.byref(rows)),
+                     "histogram_stacked")
+        hist = torch.empty(256, dtype=torch.int32, device=data.device)
+        partial = torch.empty(rows.value * 256, dtype=torch.int32, device=data.device)
         rc = lib.dcz_histogram_stacked(data.data_ptr(), valid_len, groups, counter_bits,
-                                       hist.data_ptr(), _build.stream(data))
+                                       hist.data_ptr(), partial.data_ptr(), rows.value,
+                                       _build.stream(data))
     _build.check(rc, "histogram_stacked")
     stacked_launches.add()
     return hist
@@ -70,12 +88,14 @@ def histogram_partial(data: torch.Tensor, valid_len: int, k: int = 4) -> torch.T
     if check_args(data, valid_len):
         partial_reference_calls.add()
         return bincount(data, valid_len)
-    partial = torch.zeros((k, 256), dtype=torch.int32, device=data.device)
+    sms = torch.cuda.get_device_properties(data.device).multi_processor_count
+    per_stripe = max(1, sms // k)
+    hist = torch.empty(256, dtype=torch.int32, device=data.device)
+    partial = torch.empty(k * per_stripe * 256, dtype=torch.int32, device=data.device)
     lib = _build.library()
     with torch.cuda.device(data.device):
-        rc = lib.dcz_histogram_partial(data.data_ptr(), valid_len, k, partial.data_ptr(),
-                                       _build.stream(data))
-        _build.check(rc, "histogram_partial")
-        hist = partial.sum(0, dtype=torch.int32)  # the second pass: k rows into one
+        rc = lib.dcz_histogram_partial(data.data_ptr(), valid_len, k, hist.data_ptr(),
+                                       partial.data_ptr(), per_stripe, _build.stream(data))
+    _build.check(rc, "histogram_partial")
     partial_launches.add()
     return hist

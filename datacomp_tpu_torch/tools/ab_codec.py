@@ -1,6 +1,6 @@
 """A/B harness of the codec's kernels K1 (histogram), K2 (encode), K3
-(decode) and K4 (codebook) on one CUDA device: this checkout against
-another.
+(decode) and K4 (codebook), and of K1's A/B variants K1s and K1p, on one
+CUDA device: this checkout against another.
 
     python -m datacomp_tpu_torch.tools.ab_codec [size_mb] [--checkout DIR]
 
@@ -18,7 +18,10 @@ together exceed L2).
 At ``size_mb`` MiB (16 by default) a turn times
 
 - K1 on ``random``, ``text``, ``skewed``, ``compressible`` and ``zeros`` (one
-  byte repeated) from ``utils.testdata``, each held to ``np.bincount``;
+  byte repeated) from ``utils.testdata``, each held to ``np.bincount``, and
+  on the same inputs K1s in each of ``ops.STACKED``'s configurations (case
+  ``"<config>/<kind>"``) and K1p for each ``k`` of ``ops.PARTIAL_K`` (case
+  ``"k<k>/<kind>"``);
 - K2 and K3 on ``text``, ``skewed`` and ``compressible`` with the v2 codebook
   (``fast``, auto cap) and 4032-symbol sub-blocks, the encode held to its
   plain version and the decode to the input;
@@ -107,14 +110,22 @@ def measure(size_mb: int) -> list:
         per = timers.SHORT_PER_INPUT
         return timers.graph_ms(fn, timers.copies(x), REPS * per, per)
 
+    hist_cases = [("histogram", "{}", ops.histogram)]
+    hist_cases += [("histogram_stacked", f"{name}/{{}}",
+                    lambda t, v, g=groups, b=bits: ops.histogram_stacked(t, v, g, b))
+                   for name, (groups, bits) in ops.STACKED.items()]
+    hist_cases += [("histogram_partial", f"k{k}/{{}}",
+                    lambda t, v, k=k: ops.histogram_partial(t, v, k)) for k in ops.PARTIAL_K]
     for kind in HIST_KINDS:
         data = chunks[kind]
+        want = np.bincount(data, minlength=256)
         x = torch.from_numpy(data.copy()).cuda()
-        exact = np.array_equal(ops.histogram(x, n).cpu().numpy(),
-                               np.bincount(data, minlength=256))
-        row("histogram", kind, timers.graph_ms(lambda t: ops.histogram(t, n),
-                                               timers.copies(x), REPS), exact)
-        del x
+        xs = timers.copies(x)
+        for kernel, case, fn in hist_cases:
+            exact = np.array_equal(fn(x, n).cpu().numpy(), want)
+            row(kernel, case.format(kind),
+                timers.graph_ms(lambda t, fn=fn: fn(t, n), xs, REPS), exact)
+        del x, xs
     for kind in CODEC_KINDS:
         data = chunks[kind]
         lengths, codes = build_codebook(np.bincount(data, minlength=256), mode="fast",

@@ -13,9 +13,14 @@ blocks always run in parallel.  For each input kind (``random``, ``skewed``,
 ``text`` from ``utils.testdata``) at ``size_mb`` MiB with
 ``valid_len = n - 12345``, every variant is first checked against
 ``np.bincount``, then timed with CUDA events, cycling through copies of the
-input that together exceed L2, so that each call reads its input cold.  One
-JSON line a variant and kind: ``{"variant", "kind", "bytes", "ms", "gbps",
-"exact"}``.  It exits 1 when a variant is not exact, and needs a CUDA device.
+input that together exceed L2, so that each call reads its input cold, and
+by graph replay (:func:`..tools.graph_ms`: the device time alone, the
+wrapper's host work left out).  ``torch.bincount`` has no device time: on a
+CUDA tensor it reads the input's maximum back to the host, which a CUDA
+graph cannot capture, so its record keeps its event time alone and says so.
+One JSON line a variant and kind: ``{"variant", "kind", "bytes", "ms",
+"device_ms", "gbps", "exact"}`` (``gbps`` from ``device_ms`` where there is
+one).  It exits 1 when a variant is not exact, and needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -28,12 +33,14 @@ import torch
 
 from .. import ops
 from ..utils.testdata import generate_bytes
-from . import copies, cuda_ms
+from . import copies, cuda_ms, graph_ms
 
 KINDS = ("random", "skewed", "text")
 #: bytes below the end that ``valid_len`` leaves out (the mask is exercised)
 TAIL = 12345
 REPS = 96
+#: the library yardstick, which no CUDA graph can capture
+LIBRARY = "torch.bincount"
 
 
 def variants() -> dict:
@@ -43,7 +50,7 @@ def variants() -> dict:
         out[name] = lambda x, v, g=groups, b=bits: ops.histogram_stacked(x, v, g, b)
     for k in ops.PARTIAL_K:
         out[f"partial-k{k}"] = lambda x, v, k=k: ops.histogram_partial(x, v, k)
-    out["torch.bincount"] = lambda x, v: torch.bincount(x[:v], minlength=256)
+    out[LIBRARY] = lambda x, v: torch.bincount(x[:v], minlength=256)
     return out
 
 
@@ -61,9 +68,19 @@ def run(size_mb: int = 16, kinds=KINDS, emit=print) -> list:
         xs = copies(x)
         for name, fn in variants().items():
             exact = bool(np.array_equal(fn(x, valid).cpu().numpy(), want))
-            ms = cuda_ms(lambda t, fn=fn: fn(t, valid), xs, REPS)
+
+            def call(t, fn=fn):
+                return fn(t, valid)
+
+            ms = cuda_ms(call, xs, REPS)
+            if name == LIBRARY:
+                device_ms, note = None, {"device_ms_note": "not capturable: reads the "
+                                                          "input's maximum back to the host"}
+            else:
+                device_ms, note = graph_ms(call, xs, REPS), {}
             rec = {"variant": name, "kind": kind, "bytes": valid, "ms": ms,
-                   "gbps": valid / ms / 1e6, "exact": exact}
+                   "device_ms": device_ms, "gbps": valid / (device_ms or ms) / 1e6,
+                   "exact": exact, **note}
             records.append(rec)
             emit(json.dumps(rec))
     return records

@@ -5,7 +5,9 @@ GPU service's output against the host codec's.  Exact equality throughout.
 
 Also K4 (the codebook, lengths and codes, on corpus chunks, Fibonacci
 counts, ties, fuzz and totals up to 2^32 - 2) and K1's A/B variants against
-their plain versions, K1 on five input kinds with every ``valid_len`` edge
+their plain versions (K1s at every ``groups`` and counter width, K1p at
+uneven stripe counts, on four kinds and the ``valid_len`` edges, and both
+replayed from a CUDA graph), K1 on five input kinds with every ``valid_len`` edge
 and past 2^24 bytes and counts, K2 on a codebook deeper than 32 bits, and
 one 16 MiB chunk through the device-codebook mode (K1 → K4 → K2). K3's
 warp-per-sub-block schedule at every code depth from 1 to 16, on a
@@ -367,25 +369,72 @@ def test_codebook_kernel_fuzz(cuda, seed):
         assert _same(kl, rl) and _same(kc, rc)
 
 
+#: name -> (op, its arguments after valid_len): K1s in r3's configurations
+#: and at every other (groups, counter_bits), and K1p at every k checked on
+#: the card (3, 5 and 64 leave the stripes uneven)
+_VARIANTS = {name: (ops.histogram_stacked, config) for name, config in ops.STACKED.items()}
+_VARIANTS.update({f"groups{g}-bits{b}": (ops.histogram_stacked, (g, b))
+                  for b in (8, 16) for g in range(1, 17) if (g, b) not in ops.STACKED.values()})
+_VARIANTS.update({f"partial-k{k}": (ops.histogram_partial, (k,)) for k in (1, 2, 3, 4, 5, 8, 64)})
+_VARIANT_DATA: dict = {}
+
+
+def _run_variant(name: str, x: torch.Tensor, valid_len: int) -> torch.Tensor:
+    op, args = _VARIANTS[name]
+    return op(x, valid_len, *args)
+
+
+def _variant_data(kind: str, n: int) -> np.ndarray:
+    if (kind, n) not in _VARIANT_DATA:
+        if kind == "random":
+            host = np.random.default_rng(n).integers(0, 256, n).astype(np.uint8)
+        elif kind == "zeros":  # one symbol: every 8-bit counter fills up
+            host = np.zeros(n, np.uint8)
+        else:
+            host = np.frombuffer(generate_bytes(kind, n), np.uint8).copy()
+        _VARIANT_DATA[kind, n] = host
+    return _VARIANT_DATA[kind, n]
+
+
 @pytest.mark.parametrize("n,valid_len", [
-    (16, 16), (1000, 999), (65_536 + 3, 65_536 + 3), (1 << 20, (1 << 20) - 12_345)])
-@pytest.mark.parametrize("kind", ["random", "zeros", "skewed"])
-@pytest.mark.parametrize("variant", ["stacked", "stacked8", "stacked-i16",
-                                     "partial-k1", "partial-k2", "partial-k4", "partial-k8"])
+    (16, 16), (1000, 999), (65_536 + 3, 65_536 + 3), (1 << 20, (1 << 20) - 12_345),
+    (1000, 0), (1000, 1), (1000, 15), (1000, 16), (1000, 17)])
+@pytest.mark.parametrize("kind", ["random", "zeros", "skewed", "compressible"])
+@pytest.mark.parametrize("variant", _VARIANTS)
 def test_histogram_variants_match_plain(cuda, variant, kind, n, valid_len):
-    if kind == "random":
-        host = np.random.default_rng(n).integers(0, 256, n).astype(np.uint8)
-    elif kind == "zeros":  # one symbol: every 8-bit counter fills up
-        host = np.zeros(n, np.uint8)
-    else:
-        host = np.frombuffer(generate_bytes("skewed", n), np.uint8).copy()
+    host = _variant_data(kind, n)
     x = torch.from_numpy(host).to(cuda)
-    if variant.startswith("partial"):
-        got = ops.histogram_partial(x, valid_len, int(variant.rsplit("k", 1)[1]))
-    else:
-        got = ops.histogram_stacked(x, valid_len, *ops.STACKED[variant])
+    got = _run_variant(variant, x, valid_len)
     assert _same(got, ops.histogram_reference(x, valid_len))
     assert np.array_equal(got.cpu().numpy(), np.bincount(host[:valid_len], minlength=256))
+
+
+@pytest.mark.parametrize("variant", ["stacked", "stacked8", "stacked-i16", "groups3-bits8",
+                                     "partial-k1", "partial-k3", "partial-k4", "partial-k64"])
+def test_histogram_variants_replay_from_a_cuda_graph(cuda, variant):
+    """Both variants capture into a CUDA graph (the counting launch and the
+    programmatically dependent sum) and replay to the same result, reading
+    what the input buffer holds at replay."""
+    n = 1 << 20
+    valid = n - 12_345
+    x = torch.from_numpy(_variant_data("skewed", n)).to(cuda)
+    want = _run_variant(variant, x, valid)  # outside the graph: the build and first-use work
+    torch.cuda.synchronize()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        out = _run_variant(variant, x, valid)
+    torch.cuda.current_stream().wait_stream(side)
+    for _ in range(3):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert _same(out, want)
+    other = _variant_data("random", n)
+    x.copy_(torch.from_numpy(other))
+    graph.replay()
+    torch.cuda.synchronize()
+    assert np.array_equal(out.cpu().numpy(), np.bincount(other[:valid], minlength=256))
 
 
 def test_device_codebook_mode_16mib_round_trip(cuda, tmp_path):
