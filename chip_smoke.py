@@ -52,6 +52,23 @@
 8. The device-codebook path, v1: the ``.dcz`` equals the port's host codec's
    in the same config, K1, K4 and K2 ran once per chunk (and K1 per probe),
    and the round trip restores the input through the host decode route.
+   Phases 6-8 pin ``batch_chunks`` to 1 (``DATACOMP_DEVICE_BATCH_CHUNKS``):
+   one chunk a launch.
+9. The batched kernels: a group of four 16 MiB rows (``text``, ``skewed``,
+   ``compressible``, ``zeros``, with ``valid_len`` n, n - 12345, 17 and 0)
+   through K1 → K4 and, with the rows' capped host codebooks, K2 → K3, each
+   through its batched entry point: row by row equal to the unbatched
+   kernel, equal to the batched plain version (K3's on the ``text`` row
+   alone: about a second a row), and the decode returns each row's input.
+   Each batched launch's device time beside four unbatched launches of the
+   same rows, both by graph replay in this call.
+10. The batched paths: phases 6-8's three configurations again at
+    ``batch_chunks`` auto (4 on a CUDA device): each ``.dcz`` equals its
+    batch-1 leg's byte for byte, the round trip restores the input, each
+    batched kernel ran once for each group of four chunks with at least two
+    device members (a group with one ran the unbatched kernel), the counts
+    derived from the container's raw-stored chunks and host routes, and no
+    plain version ran.  Wall MB/s and ``--stages`` for both batch sizes.
 
 Kernel, plain and library times are taken with CUDA events after a warm-up,
 cycling through copies of the inputs that together exceed the L2 cache, so
@@ -61,11 +78,12 @@ Every kernel also gets ``device_ms``, the device time alone: the same
 calls captured into a CUDA graph and replayed (``tools.graph_ms``; K4 and its
 launch floor 40 calls a graph on each input copy), and K2 the time of its
 wrapper's zero-fill alone, also replayed.  The launch counts of the kernels line
-come from the run of each kernel's path (phases 5-7), with the counts set to
-0 just before it and read just after; the comparison launches are not in
-them.  ``bound_ms`` is the larger of the bytes each kernel must move over
+come from the run of each kernel's path (phases 5-7; the batched kernels'
+from phase 10), with the counts set to 0 just before it and read just after;
+the comparison launches are not in them.  ``bound_ms`` is the larger of the bytes each kernel must move over
 3.35 TB/s and its operations over 67 T/s (the H100's non-tensor rate); K4,
-which neither bounds, also carries ``launch_floor_ms``.
+which neither bounds, also carries ``launch_floor_ms``.  A batched kernel's
+bytes and operations are those of this run's rows, summed.
 
 The script imports the port alone, never jax or ``datacomp_tpu``; the CPU
 tests hold the port to the JAX package.  All comparisons are exact: the
@@ -92,6 +110,9 @@ K3_WARP_WORDS = 1024  # csrc/decode.cu's kWarpWords: a larger sub-block takes th
 CORPUS_MB = 128  # bench.py's default corpus
 TAIL = 12345  # bytes that valid_len leaves out of the histogram inputs
 HIST_KINDS = ("random", "text", "skewed", "compressible", "zeros")  # K1's inputs
+BATCH_KINDS = ("text", "skewed", "compressible", "zeros")  # the batched kernels' rows
+BATCH_VALID = (CHUNK, CHUNK - TAIL, 17, 0)  # and their valid lengths
+AUTO_BATCH = 4  # batch_chunks auto on a CUDA device
 VARIANT_K = (1, 2, 3, 4, 5, 8, 64)  # K1p's stripe counts checked (3, 5, 64: uneven stripes)
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (NVIDIA data sheet)
 # the H100's non-tensor float32 rate, taken as the ceiling of the integer
@@ -119,7 +140,8 @@ def bound(nbytes: int, ops: int) -> dict:
 
 
 def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> int:
-    return int((a.cpu().to(torch.int64) - b.cpu().to(torch.int64)).abs().max())
+    diff = (a.cpu().to(torch.int64) - b.cpu().to(torch.int64)).abs()
+    return int(diff.max()) if diff.numel() else 0
 
 
 def check_histogram(cfg) -> dict:
@@ -456,13 +478,15 @@ def write_corpus(path: str) -> None:
         f.write(generate_bytes("random", (CORPUS_MB - 3 * per) * mb))
 
 
-def run_cli(label: str, compress_args: list, src: str, dcz: str, out: str) -> dict:
-    """compress then decompress through the CLI, with every count set to 0
-    just before and read just after."""
+def run_cli(label: str, compress_args: list, src: str, dcz: str, out: str,
+            batch: int = 1) -> dict:
+    """compress then decompress through the CLI at ``batch_chunks`` ``batch``
+    (0: auto), with every count set to 0 just before and read just after."""
     from datacomp_tpu_torch import cli
     from datacomp_tpu_torch.ops import COUNTERS, reset_counters
     from datacomp_tpu_torch.services import gpu_service
 
+    os.environ["DATACOMP_DEVICE_BATCH_CHUNKS"] = str(batch)
     reset_counters()
     gpu_service.host_encode_routes.reset()
     gpu_service.host_decode_routes.reset()
@@ -471,6 +495,7 @@ def run_cli(label: str, compress_args: list, src: str, dcz: str, out: str) -> di
     t1 = time.perf_counter()
     rc_d = cli.main(["decompress", dcz, out, "16", "--stages"])
     t2 = time.perf_counter()
+    del os.environ["DATACOMP_DEVICE_BATCH_CHUNKS"]
     res = {
         "launches": {name: k.value for name, (k, _) in COUNTERS.items()},
         "plain": {name: r.value for name, (_, r) in COUNTERS.items()},
@@ -596,6 +621,218 @@ def run_device_v1(d: str, src: str) -> dict:
     return res
 
 
+def check_batched_kernels() -> dict:
+    """Phase 9: K1 → K4 and K2 → K3 through their batched entry points on
+    ``BATCH_KINDS`` rows with ``BATCH_VALID`` lengths, against the unbatched
+    kernels row by row and the plain batched versions, each batched launch
+    timed beside four unbatched launches of the same rows."""
+    from datacomp_tpu_torch.core import huffman
+    from datacomp_tpu_torch.ops import (
+        build_decode_tables, codebook, codebook_batch, codebook_batch_reference, decode,
+        decode_batch, decode_batch_reference, encode, encode_batch, encode_batch_reference,
+        histogram, histogram_batch, histogram_batch_reference, payload_to_words,
+        words_to_bytes,
+    )
+    from datacomp_tpu_torch.tools import SHORT_PER_INPUT, copies, cuda_ms, graph_ms
+    from datacomp_tpu_torch.utils.testdata import generate_bytes
+
+    valid = list(BATCH_VALID)
+    rows = len(valid)
+    data = np.stack([np.frombuffer(generate_bytes(kind, CHUNK), np.uint8)
+                     for kind in BATCH_KINDS])
+    x = torch.from_numpy(data).cuda()
+    err = {}
+
+    def same(name: str, got: torch.Tensor, want: torch.Tensor, what: str) -> None:
+        if not torch.equal(got.cpu(), want.cpu()):
+            fail(f"batched {name}: {what}")
+        err[name] = max(err.get(name, 0), max_abs_err(got, want))
+
+    hist = histogram_batch(x, valid)
+    same("histogram", hist, histogram_batch_reference(x, valid), "differs from the plain version")
+    lens, codes = codebook_batch(hist)
+    rl, rc = codebook_batch_reference(hist)
+    same("codebook", lens, rl, "lengths differ from the plain version")
+    same("codebook", codes, rc, "codes differ from the plain version")
+    for b, v in enumerate(valid):
+        if not np.array_equal(hist[b].cpu().numpy(), np.bincount(data[b, :v], minlength=256)):
+            fail(f"batched histogram: row {b} differs from np.bincount")
+        same("histogram", hist[b], histogram(x[b], v), f"row {b} differs from the unbatched kernel")
+        kl, kc = codebook(hist[b])
+        same("codebook", lens[b], kl, f"row {b} lengths differ from the unbatched kernel")
+        same("codebook", codes[b], kc, f"row {b} codes differ from the unbatched kernel")
+
+    # K2 and K3 on the rows' host codebooks with the v2 auto cap (the fast path's)
+    books = [huffman.build_codebook(np.bincount(data[b, :v], minlength=256), mode="fast",
+                                    max_len=-1) for b, v in enumerate(valid)]
+    lt = torch.from_numpy(np.stack([bk[0] for bk in books]).astype(np.int32)).cuda()
+    ct = torch.from_numpy(np.stack([bk[1] for bk in books]).astype(np.uint32)).cuda()
+    out_words = (9 * CHUNK + 31) // 32 + 2
+    words, totals, gaps = encode_batch(x, valid, lt, ct, out_words, SUBBLOCK)
+    rw, rt, rg = encode_batch_reference(x, valid, lt, ct, out_words, SUBBLOCK)
+    same("encode", words, rw, "words differ from the plain version")
+    same("encode", totals, rt, "totals differ from the plain version")
+    same("encode", gaps, rg, "gaps differ from the plain version")
+    streams, gap_rows, live = [], [], 0
+    for b, v in enumerate(valid):
+        kw, ktb, kg = encode(x[b], v, lt[b], ct[b], out_words, SUBBLOCK)
+        same("encode", words[b], kw, f"row {b} words differ from the unbatched kernel")
+        same("encode", totals[b], ktb, f"row {b} total differs from the unbatched kernel")
+        same("encode", gaps[b], kg, f"row {b} gaps differ from the unbatched kernel")
+        tb = int(totals[b])
+        live += (tb + 31) // 32
+        streams.append(payload_to_words(words_to_bytes(words[b, : (tb + 31) // 32].cpu().numpy(),
+                                                       tb)))
+        gap_rows.append(gaps[b, : -(-v // SUBBLOCK)].cpu().numpy())
+    tables = [build_decode_tables(bk[0]) for bk in books]
+    lim, adj, sym = (torch.from_numpy(np.stack([t[k] for t in tables])).cuda() for k in range(3))
+    word_off = np.cumsum([0] + [w.size for w in streams]).tolist()
+    gap_off = np.cumsum([0] + [g.size for g in gap_rows]).tolist()
+    w = torch.from_numpy(np.concatenate(streams)).cuda()
+    g = torch.from_numpy(np.concatenate(gap_rows)).cuda()
+    stats = torch.zeros(2, dtype=torch.int64, device="cuda")
+    out = decode_batch(w, word_off, g, gap_off, lim, adj, sym, SUBBLOCK, valid, stats)
+    if not np.array_equal(out.cpu().numpy(),
+                          np.concatenate([data[b, :v] for b, v in enumerate(valid)])):
+        fail("batched decode does not return the rows' input")
+    if int(stats[0]) != gap_off[-1]:
+        fail(f"batched decode: {int(stats[0])} sub-blocks counted, {gap_off[-1]} expected")
+    cuts = np.cumsum([0] + valid).tolist()
+    singles = []
+    for b, v in enumerate(valid):
+        args = (w[word_off[b] : word_off[b + 1]], g[gap_off[b] : gap_off[b + 1]], lim[b],
+                adj[b], sym[b], SUBBLOCK, v)
+        singles.append(args)
+        same("decode", out[cuts[b] : cuts[b + 1]], decode(*args),
+             f"row {b} differs from the unbatched kernel")
+    # the plain K3 on the text row alone (about a second a 16 MiB row)
+    plain_rows = (w[: word_off[1]], [0, word_off[1]], g[: gap_off[1]], [0, gap_off[1]],
+                  lim[:1], adj[:1], sym[:1], SUBBLOCK, valid[:1])
+    t0 = time.perf_counter()
+    plain = decode_batch_reference(*plain_rows)
+    torch.cuda.synchronize()
+    decode_plain_ms = (time.perf_counter() - t0) * 1e3
+    same("decode", out[: valid[0]], plain, "the text row differs from the plain version")
+
+    # device time: each batched launch beside four unbatched launches, by
+    # graph replay; events around back-to-back batched calls; the plain
+    # batched versions (K3's on one row) by events
+    xs = copies(x)
+    hs = copies(hist)
+    ws = copies(w, g)
+    nbytes = sum(valid)
+    table_bytes = sum(t.numel() * t.element_size() for t in (lim, adj, sym))
+    res = {
+        "histogram": {
+            "ms": cuda_ms(lambda t: histogram_batch(t, valid), xs, 24),
+            "device_ms": graph_ms(lambda t: histogram_batch(t, valid), xs, 48),
+            "unbatched_device_ms": graph_ms(
+                lambda t: [histogram(t[b], v) for b, v in enumerate(valid)], xs, 48),
+            "plain_ms": cuda_ms(lambda t: histogram_batch_reference(t, valid), xs, 6),
+            **bound(nbytes + rows * 256 * 4, nbytes),
+        },
+        "codebook": {
+            "ms": cuda_ms(lambda h: codebook_batch(h), hs, 200),
+            "device_ms": graph_ms(codebook_batch, hs, 48 * SHORT_PER_INPUT, SHORT_PER_INPUT),
+            "unbatched_device_ms": graph_ms(
+                lambda h: [codebook(h[b]) for b in range(rows)], hs, 48 * SHORT_PER_INPUT,
+                SHORT_PER_INPUT),
+            "plain_ms": cuda_ms(lambda h: codebook_batch_reference(h), hs, 10),
+            **bound(rows * 256 * 4 * 3, rows * 256 * (15 + 48)),
+        },
+        "encode": {
+            "ms": cuda_ms(lambda t: encode_batch(t, valid, lt, ct, out_words, SUBBLOCK), xs, 24),
+            "device_ms": graph_ms(
+                lambda t: encode_batch(t, valid, lt, ct, out_words, SUBBLOCK), xs, 48),
+            "unbatched_device_ms": graph_ms(
+                lambda t: [encode(t[b], v, lt[b], ct[b], out_words, SUBBLOCK)
+                           for b, v in enumerate(valid)], xs, 48),
+            "plain_ms": cuda_ms(
+                lambda t: encode_batch_reference(t, valid, lt, ct, out_words, SUBBLOCK), xs, 3),
+            "zero_fill_ms": graph_ms(lambda: torch.zeros(
+                rows * out_words, dtype=torch.int32, device="cuda"), [()], 48),
+            # the rows and tables in; the live words and gap arrays out
+            **bound(nbytes + rows * 256 * 8 + 4 * live + 4 * gap_off[-1], nbytes),
+        },
+        "decode": {
+            "ms": cuda_ms(lambda w_, g_: decode_batch(w_, word_off, g_, gap_off, lim, adj, sym,
+                                                      SUBBLOCK, valid), ws, 24),
+            "device_ms": graph_ms(lambda w_, g_: decode_batch(
+                w_, word_off, g_, gap_off, lim, adj, sym, SUBBLOCK, valid), ws, 48),
+            "unbatched_device_ms": graph_ms(lambda w_, g_: [
+                decode(w_[word_off[b] : word_off[b + 1]], g_[gap_off[b] : gap_off[b + 1]],
+                       lim[b], adj[b], sym[b], SUBBLOCK, v) for b, v in enumerate(valid)],
+                ws, 48),
+            "plain_ms": decode_plain_ms,
+            "plain_rows": 1,
+            # the streams, gap arrays and tables in; the rows out
+            **bound(4 * w.numel() + 4 * g.numel() + table_bytes + nbytes, nbytes),
+        },
+    }
+    for name, r in res.items():
+        r["max_abs_err"] = err[name]
+    print(f"batched kernels, {rows} rows of {CHUNK >> 20} MiB ({', '.join(BATCH_KINDS)}; valid_len "
+          f"{valid}): each equal to the unbatched kernel row by row and to the plain "
+          f"version; device ms of one batched launch against four unbatched launches: "
+          + "; ".join(f"{name} {r['device_ms']} / {r['unbatched_device_ms']}"
+                      for name, r in res.items())
+          + f"; K3 decoded {int(stats[0])} sub-blocks in {int(stats[1])} sync rounds",
+          flush=True)
+    return res
+
+
+def expected_launches(dcz: str, device_codebook: bool, batch: int) -> tuple:
+    """The launches and host decode routes a compress → decompress of ``dcz``
+    at ``batch_chunks`` ``batch`` implies: each group of ``batch`` chunks
+    runs the batched kernels once when two or more of its members reach the
+    device, the unbatched kernels once when one does.  Compress: the chunks
+    not stored raw; decompress: v2 chunks of depth 1 to 16 (the rest that
+    are not raw take the host route)."""
+    from datacomp_tpu_torch.core import read_container
+    from datacomp_tpu_torch.ops import TABLE_BITS, max_code_len
+
+    header, _ = read_container(dcz)
+    v2 = header.version >= 2
+    want = {name: 0 for name in ("histogram", "codebook", "encode", "decode", "histogram_batch",
+                                 "codebook_batch", "encode_batch", "decode_batch")}
+    routes = 0
+    for i in range(0, len(header.chunks), batch):
+        depths = [max_code_len(c.code_lengths) for c in header.chunks[i : i + batch]]
+        coded = sum(1 for dep in depths if dep > 0)
+        on_k3 = sum(1 for dep in depths if v2 and 0 < dep <= TABLE_BITS)
+        routes += coded - on_k3
+        for names, members in (((("histogram", "codebook") if device_codebook else ())
+                                + ("encode",), coded), (("decode",), on_k3)):
+            for name in names:
+                if members > 1:
+                    want[f"{name}_batch"] += 1
+                elif members == 1:
+                    want[name] += 1
+    want["histogram"] += 2  # the availability probe of each CLI command's service
+    return want, routes
+
+
+def run_batched(label: str, compress_args: list, d: str, src: str, leg: str,
+                unbatched: dict) -> dict:
+    """Phase 10: one configuration at ``batch_chunks`` auto, against its
+    batch-1 leg ``leg`` (``{leg}.dcz``, whose run was ``unbatched``)."""
+    dcz, out = os.path.join(d, f"{leg}-auto.dcz"), os.path.join(d, f"{leg}-auto.out")
+    res = run_cli(f"{label}, batch_chunks auto", compress_args, src, dcz, out, batch=0)
+    if not filecmp.cmp(dcz, os.path.join(d, f"{leg}.dcz"), shallow=False):
+        fail(f"{label}: the .dcz at batch_chunks auto differs from batch_chunks 1")
+    want, routes = expected_launches(dcz, "device" in compress_args, AUTO_BATCH)
+    got = {name: res["launches"][name] for name in want}
+    print(f"{label}, batch_chunks auto ({AUTO_BATCH}): .dcz byte-identical to batch 1; "
+          f"launches {got}, derived from the container {want}; host decode routes "
+          f"{res['decode_routes']} (expected {routes}); compress "
+          f"{res['compress_mbps']} MB/s, decompress {res['decompress_mbps']} MB/s against "
+          f"{unbatched['compress_mbps']} / {unbatched['decompress_mbps']} at batch 1",
+          flush=True)
+    if got != want or res["decode_routes"] != routes:
+        fail(f"{label}: batched launch counts or routes differ from those the container implies")
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
@@ -630,6 +867,13 @@ def main() -> int:
         fast = run_fast_path(d, src)
         dev2 = run_device_v2(d, src)
         dev1 = run_device_v1(d, src)
+        batched = check_batched_kernels()
+        fast4 = run_batched("fast path (v2, host codebook)", ["--format", "2", "--codebook-mode",
+                                                              "fast"], d, src, "fast", fast)
+        dev2_4 = run_batched("device codebook, v2", ["--format", "2", "--codebook-mode",
+                                                     "device"], d, src, "dev2", dev2)
+        run_batched("device codebook, v1", ["--format", "1", "--codebook-mode",
+                                                     "device"], d, src, "dev1", dev1)
     jax_side = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "datacomp_tpu"))
     if jax_side:
         fail(f"jax or the JAX package was imported: {jax_side}")
@@ -668,6 +912,16 @@ def main() -> int:
         {**variant("histogram_stacked", "stacked"), "replaces": "tools/ab_hist_pallas_r3.py:42"},
         {**variant("histogram_partial", "partial-k4"), "replaces": "tools/ab_hist_pallas_r4.py:50"},
     ]
+    # the batched entry points, with the launches of phase 10's runs (device
+    # v2 for K1 and K4, fast v2 for K2 and K3), beside the rows' unbatched time
+    for name, leg, replaces in (
+            ("histogram", dev2_4, "datacomp_tpu/ops/histogram_pallas.py:114"),
+            ("codebook", dev2_4, "datacomp_tpu/ops/codebook.py:37"),
+            ("encode", fast4, "datacomp_tpu/ops/encode_merge.py:459"),
+            ("decode", fast4, "datacomp_tpu/services/tpu_service.py:745")):
+        kernels.append({"name": f"{name}_batch", "route": "cuda", "source": source.format(name),
+                        "replaces": replaces, "launches": leg["launches"][f"{name}_batch"],
+                        "rows": len(BATCH_VALID), **batched[name], "library_ms": None})
     print(card_line())
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

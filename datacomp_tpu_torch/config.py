@@ -4,7 +4,7 @@ The ``compression``, ``logging`` and ``output`` sections, the sources and the
 ``DATACOMP_<SECTION>_<KEY>`` variables are those of ``datacomp_tpu/config.py``,
 so one setting gives both packages the same ``.dcz`` bytes.  Each section
 keeps only the fields the port reads: the TPU knobs (histogram backend,
-batching, fallback), the fields only the JAX package's UI and benchmark read,
+fallback), the fields only the JAX package's UI and benchmark read,
 and the ``benchmark`` section have no user here yet.  Unknown keys in a file
 or the environment are ignored.
 
@@ -58,6 +58,9 @@ class DeviceConfig:
     device_index: int = -1  # -1 = auto
     # chunks in flight at once (pipeline workers: host prepass overlaps device)
     parallel_chunks: int = 3
+    # chunks a device call takes, on both directions (one launch of each
+    # kernel a group): 0 = auto (4 on a CUDA device, 1 on the CPU), else 1..16
+    batch_chunks: int = 0
 
 
 @dataclass(frozen=True)
@@ -194,4 +197,8 @@ def _validate(cfg: AppConfig) -> None:
     if comp.format_version >= 2 and comp.subblock_symbols % 32:
         raise ValueError(
             f"subblock-symbols must be a multiple of 32, got {comp.subblock_symbols}"
+        )
+    if not 0 <= cfg.device.batch_chunks <= 16:
+        raise ValueError(
+            f"batch-chunks must be 0 (auto) or 1..16, got {cfg.device.batch_chunks}"
         )

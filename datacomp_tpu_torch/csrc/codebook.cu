@@ -1,5 +1,5 @@
 // K4: canonical-Huffman codebook from a 256-bin histogram: int32[256] code
-// lengths and uint32[256] canonical codes.
+// lengths and uint32[256] canonical codes, for each histogram of a batch.
 //
 // Replaces datacomp_tpu/ops/codebook.py::device_code_lengths and
 // ::device_canonical_codes, XLA ops, and reproduces them tie for tie: leaves
@@ -15,7 +15,8 @@
 // 1 KB and writes 2 KB; its time is the chain of barriers and dependent
 // shared-memory reads from the launch to the last store.
 //
-// Design: one block of 256 threads, one per symbol.
+// Design: one block of 256 threads, one per symbol, a block for each
+// histogram of a batch (the JAX service vmaps device_codebook over a group).
 //  1. Sort: each warp sorts its 32 (key, symbol) pairs with a bitonic network
 //     of shuffles; a present symbol's leaf slot is then the count of smaller
 //     pairs in the 8 sorted runs (a binary search in each).
@@ -69,6 +70,9 @@ codebook_kernel(const int* __restrict__ hist, int* __restrict__ lengths,
   __shared__ int len_s[kSyms];
   __shared__ int warp_count_s[kWarps][kMaxLen + 2];  // lengths 0..32, and 33 for deeper
 
+  hist += blockIdx.x * kSyms;  // this block's histogram of the batch
+  lengths += blockIdx.x * kSyms;
+  codes += blockIdx.x * kSyms;
   const int t = threadIdx.x;
   const int lane = t & 31;
   const int warp = t >> 5;
@@ -206,9 +210,10 @@ codebook_kernel(const int* __restrict__ hist, int* __restrict__ lengths,
 
 }  // namespace
 
-// hist: int32[256]; lengths: int32[256]; codes: uint32[256].
-extern "C" int dcz_codebook(const void* hist, void* lengths, void* codes, void* stream) {
-  codebook_kernel<<<1, kSyms, 0, (cudaStream_t)stream>>>(
+// hist: int32[rows][256]; lengths: int32[rows][256]; codes: uint32[rows][256].
+extern "C" int dcz_codebook(const void* hist, void* lengths, void* codes, int rows,
+                            void* stream) {
+  codebook_kernel<<<rows, kSyms, 0, (cudaStream_t)stream>>>(
       static_cast<const int*>(hist), static_cast<int*>(lengths),
       static_cast<uint32_t*>(codes));
   return (int)cudaGetLastError();

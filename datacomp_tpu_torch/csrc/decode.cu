@@ -1,8 +1,10 @@
 // K3: gap-array canonical-Huffman decode (format v2).  Sub-block i enters the
 // stream at bit gaps[i] and yields `subblock` symbols; the output stops at
-// n_out, so the last sub-block may be short.
+// n_out, so the last sub-block may be short.  One launch decodes a batch of
+// chunks.
 //
-// Replaces datacomp_tpu/ops/decode.py::decode_device, an XLA op.  The TPU
+// Replaces datacomp_tpu/ops/decode.py::decode_device, an XLA op, and its
+// vmapped form (tpu_service.py::_batched_decoder).  The TPU
 // version is shaped by the TPU's lack of a vector gather: code lengths by
 // broadcast compares, the symbol by a one-hot matmul, and W-word row refills
 // to amortise the one gather it keeps.  On Hopper the tables sit in shared
@@ -74,16 +76,30 @@
 //     4032 16-bit codes (2048 words) hold fewer warps an SM and ran slower
 //     on the H100 (PERF.md).
 //   * Grid.  Persistent: as many blocks as fit on the card at once, each
-//     warp walking sub-blocks i, i + warps in the grid, ...; so each block
-//     builds its table once.
+//     warp walking sub-blocks i, i + warps in its row's run, ...; so each
+//     block builds its table once.
 //   * Statistics.  With `stats` (int64[2]) given, each warp adds its
-//     sub-blocks and its sync rounds with one atomicAdd each.
+//     sub-blocks and its sync rounds with one atomicAdd each, summed over
+//     the batch.
+//   * Batch.  The chunks (rows) of a batch: their words, gap arrays and
+//     outputs lie concatenated, at offsets among the launch's parameters
+//     (rows.cuh), and their tables are rows of limits, adj and sym.  The
+//     flat grid is cut into a run of blocks for each row, the resident
+//     blocks shared out in proportion to the rows' sub-blocks; a block
+//     builds its row's direct table once and walks the row's sub-blocks.  A
+//     row's stream is only its own words: stream_bits and the direct
+//     route's bounds are the row's, so a short or corrupt row never reads its
+//     neighbour.  One chunk is a batch of one.  The JAX service groups a
+//     batch by its static decode parameters; here every row reads its own
+//     tables at run time, so rows of any depth up to 16 mix.
 // Codes must be at most 16 bits (the wrapper's caller routes deeper codebooks
 // to the host decoder).  A corrupt stream decodes to garbage, never out of
 // bounds, and always yields n_out bytes; the chunk's SHA-256 catches it.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "rows.cuh"
 
 namespace {
 
@@ -308,15 +324,27 @@ __device__ __forceinline__ int decode_subblock(Src src, Decoder dec, Pos lo, Pos
 }
 
 __global__ void __launch_bounds__(kThreads)
-decode_kernel(const uint32_t* __restrict__ words, int64_t nwords,
-              const uint32_t* __restrict__ gaps, int64_t nsub,
+decode_kernel(const uint32_t* __restrict__ words, RowValues word_off,
+              const uint32_t* __restrict__ gaps, RowValues sub_off,
               const int* __restrict__ limits, const int* __restrict__ adj,
-              const int* __restrict__ sym, int subblock, int64_t n_out,
+              const int* __restrict__ sym, int subblock, RowValues out_off, RowValues runs,
               uint8_t* __restrict__ out, unsigned long long* __restrict__ stats) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   Smem& sm = *reinterpret_cast<Smem*>(smem_raw);
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
+  const int row = row_of_block(runs, blockIdx.x);
+  const int64_t block = blockIdx.x - runs.v[row];  // in the row's run
+  const int64_t blocks = runs.v[row + 1] - runs.v[row];
+  words += word_off.v[row];
+  const int64_t nwords = word_off.v[row + 1] - word_off.v[row];
+  gaps += sub_off.v[row];
+  const int64_t nsub = sub_off.v[row + 1] - sub_off.v[row];
+  out += out_off.v[row];
+  const int64_t n_out = out_off.v[row + 1] - out_off.v[row];
+  limits += row * kCodeBits;
+  adj += row * kCodeBits;
+  sym += row * 256;
 
   Decoder dec;
   dec.lim = load_limits(limits);
@@ -360,8 +388,7 @@ decode_kernel(const uint32_t* __restrict__ words, int64_t nwords,
   uint8_t* stage = reinterpret_cast<uint8_t*>(bm);
   unsigned long long subs = 0, rounds = 0;
 
-  for (int64_t i = (int64_t)blockIdx.x * kWarps + warp; i < nsub;
-       i += (int64_t)gridDim.x * kWarps) {
+  for (int64_t i = block * kWarps + warp; i < nsub; i += blocks * kWarps) {
     const int64_t first = i * subblock;
     if (first >= n_out) break;
     const int count = (int)(n_out - first < subblock ? n_out - first : subblock);
@@ -412,16 +439,26 @@ decode_kernel(const uint32_t* __restrict__ words, int64_t nwords,
 
 }  // namespace
 
-// words: uint32[nwords]; gaps: uint32[nsub]; limits, adj: int32[16];
-// sym: int32[256]; out: uint8[n_out], n_out <= nsub * subblock; stats:
-// int64[2] (sub-blocks decoded, sync rounds taken; added to) or null.
-extern "C" int dcz_decode(const void* words, int64_t nwords, const void* gaps,
-                          int64_t nsub, const void* limits, const void* adj,
-                          const void* sym, int subblock, int64_t n_out, void* out,
-                          void* stats, void* stream) {
-  const int64_t live = (n_out + subblock - 1) / subblock;  // sub-blocks with output
-  const int64_t need = ((live < nsub ? live : nsub) + kWarps - 1) / kWarps;
-  if (need <= 0) return (int)cudaGetLastError();
+// words: uint32[word_off[rows]], row r's stream at [word_off[r],
+// word_off[r + 1]); gaps: uint32[sub_off[rows]], likewise; limits, adj:
+// int32[rows][16]; sym: int32[rows][256]; out: uint8[out_off[rows]], row r's
+// n_out = out_off[r + 1] - out_off[r] <= its sub-blocks x subblock bytes at
+// out_off[r]; the offsets: int64[rows + 1] on the host; rows: 1 ..
+// kMaxRows; stats: int64[2] (sub-blocks decoded, sync rounds taken; added
+// to) or null.
+extern "C" int dcz_decode(const void* words, const int64_t* word_off, const void* gaps,
+                          const int64_t* sub_off, const void* limits, const void* adj,
+                          const void* sym, int rows, int subblock, const int64_t* out_off,
+                          void* out, void* stats, void* stream) {
+  int64_t need[kMaxRows], busy = 0;  // blocks each row can use
+  for (int r = 0; r < rows; ++r) {
+    const int64_t n_out = out_off[r + 1] - out_off[r];
+    const int64_t nsub = sub_off[r + 1] - sub_off[r];
+    const int64_t live = (n_out + subblock - 1) / subblock;  // sub-blocks with output
+    need[r] = ((live < nsub ? live : nsub) + kWarps - 1) / kWarps;
+    busy += need[r];
+  }
+  if (busy <= 0) return (int)cudaGetLastError();
   const int smem = (int)sizeof(Smem);
   cudaError_t err = cudaFuncSetAttribute(decode_kernel,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -433,11 +470,12 @@ extern "C" int dcz_decode(const void* words, int64_t nwords, const void* gaps,
   }
   if (err != cudaSuccess) return (int)err;
   const int64_t resident = (int64_t)(per_sm > 0 ? per_sm : 1) * sms;
-  const int64_t blocks = need < resident ? need : resident;
-  decode_kernel<<<(unsigned)blocks, kThreads, smem, (cudaStream_t)stream>>>(
-      static_cast<const uint32_t*>(words), nwords, static_cast<const uint32_t*>(gaps), nsub,
+  const RowValues runs = block_runs(need, rows, resident);  // the rows share the card
+  decode_kernel<<<(unsigned)runs.v[rows], kThreads, smem, (cudaStream_t)stream>>>(
+      static_cast<const uint32_t*>(words), row_values(word_off, rows + 1),
+      static_cast<const uint32_t*>(gaps), row_values(sub_off, rows + 1),
       static_cast<const int*>(limits), static_cast<const int*>(adj),
-      static_cast<const int*>(sym), subblock, n_out, static_cast<uint8_t*>(out),
-      static_cast<unsigned long long*>(stats));
+      static_cast<const int*>(sym), subblock, row_values(out_off, rows + 1), runs,
+      static_cast<uint8_t*>(out), static_cast<unsigned long long*>(stats));
   return (int)cudaGetLastError();
 }

@@ -1,8 +1,11 @@
 // K2: canonical-Huffman encode of data[:valid_len] into an MSB-first stream
 // of uint32 words (bit 31 of word 0 is the first bit), plus the start bit of
-// every `subblock`-th symbol (the format-v2 gap array).
+// every `subblock`-th symbol (the format-v2 gap array), for each chunk of a
+// batch.
 //
-// Replaces datacomp_tpu/ops/encode_merge.py::encode_device_merge, an XLA op.
+// Replaces datacomp_tpu/ops/encode_merge.py::encode_device_merge, an XLA op,
+// and its vmapped forms (encode_device_merge_batch_slotted, and the vmap of
+// the JAX service's batched pipeline with host tables).
 // The TPU version is shaped by the TPU's slow gathers and scatters: one-hot
 // matmul table lookups, a five-level bitstream merge tree, a matmul prefix
 // sum and an ownership scatter.  None of that is carried over: Hopper reads
@@ -38,6 +41,17 @@
 //      neighbouring tiles, go to device memory by atomicOr: at most 2 device
 //      atomics a tile.
 // Gap bits are written by the thread that holds every `subblock`-th symbol.
+// Batch: the chunks are rows of data, each with its own valid_len (in the
+// launch's parameters, rows.cuh), codebook, words (out_words each), gaps,
+// total and tile statuses.  One ticket runs over rows x tiles, row-major:
+// ticket k is tile k % tiles of row k / tiles.  A tile's look-back reads only
+// its own row's statuses, and every tile it waits on holds an earlier ticket,
+// so is already running: the forward-progress argument of the single scan
+// holds row by row.  A batched block learns its row from its ticket, so it
+// loads its codebook after the ticket (one more barrier); one chunk is a
+// batch of one, instantiated without that step, which loads its codebook
+// beside the ticket: the batched instantiation at one row took 5.8-7.2 %
+// more device time (PERF.md).
 // Writes at or beyond out_words are dropped (the wrapper's caller raises when
 // the total exceeds the capacity).  Codes must be at most 32 bits; a longer
 // one still moves the bit offsets by its length and writes nothing, so the
@@ -47,6 +61,8 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "rows.cuh"
 
 namespace {
 
@@ -133,20 +149,32 @@ __device__ int64_t look_back(unsigned long long* status, int64_t t, int64_t sum)
 }
 
 // n < 2^27 (the wrapper's check), so symbol indices are 32-bit.
+template <bool kBatch>
 __global__ void __launch_bounds__(kThreads)
-encode_kernel(const uint8_t* __restrict__ data, int n, int valid_len,
+encode_kernel(const uint8_t* __restrict__ data, int n, RowValues valid_lens,
               const int* __restrict__ lengths, const uint32_t* __restrict__ codes,
               uint32_t* __restrict__ words, int64_t out_words, uint32_t* __restrict__ gaps,
-              int subblock, unsigned long long* __restrict__ ws, int tiles) {
+              int subblock, unsigned long long* __restrict__ ws, int rows, int tiles) {
   __shared__ uint2 entry_s[256];  // (code, length)
   __shared__ uint32_t buf[kTileWords];
   __shared__ int64_t start_s;
   __shared__ int tile_s;
   if (threadIdx.x == 0) tile_s = (int)atomicAdd(&ws[0], 1ull);
-  entry_s[threadIdx.x] = make_uint2(codes[threadIdx.x], lengths[threadIdx.x]);  // 256 threads
+  if (!kBatch) entry_s[threadIdx.x] = make_uint2(codes[threadIdx.x], lengths[threadIdx.x]);
   __syncthreads();
 
-  const int t = tile_s;
+  const int row = kBatch ? tile_s / tiles : 0;
+  const int t = tile_s - row * tiles;
+  if (kBatch) {  // 256 threads: the row's codebook
+    entry_s[threadIdx.x] = make_uint2(codes[row * 256 + threadIdx.x],
+                                      lengths[row * 256 + threadIdx.x]);
+    __syncthreads();
+  }
+  const int valid_len = (int)valid_lens.v[row];
+  data += (int64_t)row * n;
+  words += row * out_words;
+  if (subblock > 0) gaps += (int64_t)row * ((n + subblock - 1) / subblock);
+  unsigned long long* status = ws + 1 + rows + (int64_t)row * tiles;
   const int base = t * kTile + threadIdx.x * kSymsPerThread;
   uint4 q[kVecs];  // the thread's symbols (zeros past n; n is a multiple of 32)
 #pragma unroll
@@ -172,10 +200,10 @@ encode_kernel(const uint8_t* __restrict__ data, int n, int valid_len,
   const int nzero = (sum + 62) / 32 < kTileWords ? (sum + 62) / 32 : kTileWords;
   for (int j = threadIdx.x; j < nzero; j += kThreads) buf[j] = 0;
   if (threadIdx.x < 32) {
-    const int64_t start = look_back(ws + 2, t, sum);
+    const int64_t start = look_back(status, t, sum);
     if (threadIdx.x == 0) {
       start_s = start;
-      if (t == tiles - 1) ws[1] = (unsigned long long)(start + sum);  // total_bits
+      if (t == tiles - 1) ws[1 + row] = (unsigned long long)(start + sum);  // total_bits
     }
   }
   __syncthreads();
@@ -264,21 +292,25 @@ encode_kernel(const uint8_t* __restrict__ data, int n, int valid_len,
 // Symbols per tile: the wrapper sizes the tile-status array with it.
 extern "C" int dcz_encode_tile_symbols() { return kTile; }
 
-// data: uint8[n], n % 32 == 0, n < 2^27, 16-byte aligned; lengths: int32[256];
-// codes: uint32[256]; words: uint32[out_words], zeroed; gaps:
-// uint32[ceil(n / subblock)], or unused when subblock == 0 (subblock is
-// otherwise a multiple of 32); ws: int64[2 + ceil(n / kTile)], zeroed: [0] the
-// tile ticket, [1] gets total_bits, [2 + t] tile t's status.
-extern "C" int dcz_encode(const void* data, int64_t n, int64_t valid_len, const void* lengths,
-                          const void* codes, void* words, int64_t out_words, void* gaps,
-                          int subblock, void* ws, void* stream) {
+// data: uint8[rows][n], n % 32 == 0, n < 2^27, 16-byte aligned; valid_lens:
+// int64[rows] on the host, each <= n; rows: 1 .. kMaxRows; lengths:
+// int32[rows][256]; codes: uint32[rows][256]; words: uint32[rows][out_words],
+// zeroed; gaps: uint32[rows][ceil(n / subblock)], or unused when subblock ==
+// 0 (subblock is otherwise a multiple of 32); ws: int64[1 + rows + rows *
+// ceil(n / kTile)], zeroed: [0] the tile ticket, [1 + r] gets row r's
+// total_bits, [1 + rows + r * tiles + t] tile t of row r's status.
+extern "C" int dcz_encode(const void* data, int64_t n, const int64_t* valid_lens, int rows,
+                          const void* lengths, const void* codes, void* words,
+                          int64_t out_words, void* gaps, int subblock, void* ws,
+                          void* stream) {
   const int64_t tiles = (n + kTile - 1) / kTile;
   if (tiles > 0) {
-    encode_kernel<<<(unsigned)tiles, kThreads, 0, (cudaStream_t)stream>>>(
-        static_cast<const uint8_t*>(data), (int)n, (int)valid_len,
+    auto kernel = rows > 1 ? encode_kernel<true> : encode_kernel<false>;
+    kernel<<<(unsigned)(tiles * rows), kThreads, 0, (cudaStream_t)stream>>>(
+        static_cast<const uint8_t*>(data), (int)n, row_values(valid_lens, rows),
         static_cast<const int*>(lengths), static_cast<const uint32_t*>(codes),
         static_cast<uint32_t*>(words), out_words, static_cast<uint32_t*>(gaps), subblock,
-        static_cast<unsigned long long*>(ws), (int)tiles);
+        static_cast<unsigned long long*>(ws), rows, (int)tiles);
   }
   return (int)cudaGetLastError();
 }

@@ -1,7 +1,9 @@
-// K1: 256-bin byte histogram of data[:valid_len].
+// K1: 256-bin byte histogram of data[:valid_len], for each chunk of a batch.
 //
 // Replaces datacomp_tpu/ops/histogram_pallas.py::_hist_kernel (wrapper
-// histogram_pallas).  The TPU kernel contracts packed-8 one-hots on the MXU
+// histogram_pallas), and its vmapped form in the JAX service's batched
+// pipeline (tpu_service.py::_batched_pipeline), which prepends a batch axis
+// to the Pallas grid.  The TPU kernel contracts packed-8 one-hots on the MXU
 // into an f32 accumulator, because the TPU has no fast scatter, and splits
 // chunks into 2^24-byte segments to keep f32 counts exact.  Hopper has
 // shared-memory atomics, so each byte is one integer atomicAdd and the counts
@@ -28,39 +30,60 @@
 // completion inside (griddepcontrol), so its launch overlaps the counting.
 // The counting core and the summing kernel live in histogram_core.cuh, which
 // K1p (histogram_variants.cu) shares; K1s shares the summing kernel.
+//
+// Batch: the chunks are rows of data, row_stride bytes apart, each with its
+// own valid_len among the launch's parameters (rows.cuh).  The flat grid is
+// cut into a run of blocks for each chunk, the SMs shared out in proportion
+// to the chunks' lengths (about one block an SM in all, at least one a chunk,
+// which writes its zeros when it is empty); block b writes row b of the
+// scratch, so that a chunk's rows lie together, and the summing kernel,
+// with a batch axis, adds each chunk's run of rows into hist[chunk].  One
+// chunk is a batch of one.
 
 #include "histogram_core.cuh"
+#include "rows.cuh"
 
 namespace {
 
 __global__ void __launch_bounds__(kThreads)
-histogram_kernel(const uint8_t* __restrict__ data, int64_t valid_len,
-                 int* __restrict__ partial) {
+histogram_kernel(const uint8_t* __restrict__ data, int64_t row_stride, RowValues valid_lens,
+                 RowValues runs, int* __restrict__ partial) {
   __shared__ uint32_t bins[kBins * kLanes];
   asm volatile("griddepcontrol.launch_dependents;");  // the summing kernel may start
+  const int row = row_of_block(runs, blockIdx.x);
+  const int64_t block = blockIdx.x - runs.v[row];  // in the chunk's run
+  const int64_t valid_len = valid_lens.v[row];
+  data += row * row_stride;
   uint32_t* mine = lane_bins_init(bins);
-  const int64_t stride = (int64_t)gridDim.x * kThreads;
-  count_vectors(mine, reinterpret_cast<const uint4*>(data),
-                (int64_t)blockIdx.x * kThreads + threadIdx.x, valid_len / 16, stride);
-  if (blockIdx.x == 0) count_tail(mine, data, valid_len);
+  const int64_t stride = (runs.v[row + 1] - runs.v[row]) * kThreads;
+  count_vectors(mine, reinterpret_cast<const uint4*>(data), block * kThreads + threadIdx.x,
+                valid_len / 16, stride);
+  if (block == 0) count_tail(mine, data, valid_len);
   fold_lane_bins(bins, partial + (int64_t)blockIdx.x * kBins);
 }
 
 }  // namespace
 
-// data: uint8[>= valid_len], 16-byte aligned; hist: int32[256], written
-// whole; partial: int32[max_blocks * 256] scratch, one row a block of the
-// first kernel (max_blocks: the SM count, one block each).
-extern "C" int dcz_histogram(const void* data, int64_t valid_len, void* hist, void* partial,
-                             int max_blocks, void* stream) {
-  const int64_t nvec = (valid_len + 15) / 16;
-  int64_t blocks = (nvec + kThreads - 1) / kThreads;
-  if (blocks > max_blocks) blocks = max_blocks;
-  if (blocks < 1) blocks = 1;  // valid_len 0 still writes the zeros
+// data: uint8[rows][row_stride], 16-byte aligned, row_stride a multiple of
+// 16; valid_lens: int64[rows] on the host, each <= row_stride; rows: 1 ..
+// kMaxRows; hist: int32[rows][256], written whole; partial: int32[(max_blocks
+// + rows) * 256] scratch, one row a block of the first kernel (max_blocks:
+// the blocks to share out, the SM count).
+extern "C" int dcz_histogram(const void* data, int64_t row_stride, const int64_t* valid_lens,
+                             int rows, void* hist, void* partial, int max_blocks,
+                             void* stream) {
+  int64_t need[kMaxRows];  // blocks a chunk can use: at least one, to write its zeros
+  for (int r = 0; r < rows; ++r) {
+    const int64_t nvec = (valid_lens[r] + 15) / 16;
+    need[r] = (nvec + kThreads - 1) / kThreads;
+    need[r] = need[r] > 0 ? need[r] : 1;
+  }
+  const RowValues runs = block_runs(need, rows, max_blocks);
   cudaStream_t s = (cudaStream_t)stream;
-  histogram_kernel<<<(unsigned)blocks, kThreads, 0, s>>>(
-      static_cast<const uint8_t*>(data), valid_len, static_cast<int*>(partial));
-  return launch_histogram_sum(static_cast<const int*>(partial), (int)blocks,
+  histogram_kernel<<<(unsigned)runs.v[rows], kThreads, 0, s>>>(
+      static_cast<const uint8_t*>(data), row_stride, row_values(valid_lens, rows), runs,
+      static_cast<int*>(partial));
+  return launch_histogram_sum(static_cast<const int*>(partial), runs, rows,
                               static_cast<int*>(hist), s);
 }
 

@@ -17,6 +17,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "rows.cuh"
+
 namespace {
 
 constexpr int kThreads = 1024;
@@ -87,19 +89,22 @@ __device__ __forceinline__ void fold_lane_bins(const uint32_t* bins, int* __rest
   if (part == 0) row[bin] = (int)s;
 }
 
-// hist[b] = sum of partial[r * 256 + b] over the rows r < rows.  Block k
-// takes bins 32k .. 32k+31; its 32 warps take every 32nd row (about four
-// each, all loads in flight), each lane a bin.
+// hist[y * 256 + b] = sum of partial[r * 256 + b] over the rows r of chunk
+// y = blockIdx.y, runs.v[y] <= r < runs.v[y + 1] (one chunk: rows 0 ..
+// rows - 1).  Block k takes bins 32k .. 32k+31; its 32 warps take every 32nd
+// row (about four each, all loads in flight), each lane a bin.
 __global__ void __launch_bounds__(kLanes * kSumGroups)
-histogram_sum_kernel(const int* __restrict__ partial, int rows, int* __restrict__ hist) {
+histogram_sum_kernel(const int* __restrict__ partial, RowValues runs, int* __restrict__ hist) {
   __shared__ int group_s[kSumGroups][kLanes];
   const int lane = threadIdx.x & (kLanes - 1);
   const int group = threadIdx.x / kLanes;
   const int bin = blockIdx.x * kLanes + lane;
+  const int64_t first = runs.v[blockIdx.y], end = runs.v[blockIdx.y + 1];
+  hist += (int64_t)blockIdx.y * kBins;
   asm volatile("griddepcontrol.wait;" ::: "memory");  // every row written and visible
   int s = 0;
 #pragma unroll 8
-  for (int r = group; r < rows; r += kSumGroups) s += partial[(int64_t)r * kBins + bin];
+  for (int64_t r = first + group; r < end; r += kSumGroups) s += partial[r * kBins + bin];
   group_s[group][lane] = s;
   __syncthreads();
   if (group == 0) {
@@ -109,23 +114,32 @@ histogram_sum_kernel(const int* __restrict__ partial, int rows, int* __restrict_
   }
 }
 
-// Launch histogram_sum_kernel over `rows` rows of `partial` on `stream`,
-// right after a counting kernel that executed griddepcontrol.launch_dependents:
-// a programmatic dependent launch, which starts at once and waits inside on
+// Launch histogram_sum_kernel for `batch` chunks, chunk y's rows of
+// `partial` at runs.v[y] .. runs.v[y + 1], on `stream`, right after a
+// counting kernel that executed griddepcontrol.launch_dependents: a
+// programmatic dependent launch, which starts at once and waits inside on
 // the counting kernel's completion, so that its launch overlaps the counting.
-inline int launch_histogram_sum(const int* partial, int rows, int* hist, cudaStream_t stream) {
+inline int launch_histogram_sum(const int* partial, const RowValues& runs, int batch, int* hist,
+                                cudaStream_t stream) {
   const cudaError_t err = cudaGetLastError();  // the counting kernel's launch
   if (err != cudaSuccess) return (int)err;
   cudaLaunchAttribute early;
   early.id = cudaLaunchAttributeProgrammaticStreamSerialization;
   early.val.programmaticStreamSerializationAllowed = 1;
   cudaLaunchConfig_t sum = {};
-  sum.gridDim = dim3(kSumBlocks);
+  sum.gridDim = dim3(kSumBlocks, batch);
   sum.blockDim = dim3(kLanes * kSumGroups);
   sum.stream = stream;
   sum.attrs = &early;
   sum.numAttrs = 1;
-  return (int)cudaLaunchKernelEx(&sum, histogram_sum_kernel, partial, rows, hist);
+  return (int)cudaLaunchKernelEx(&sum, histogram_sum_kernel, partial, runs, hist);
+}
+
+// The same for one chunk of `rows` rows.
+inline int launch_histogram_sum(const int* partial, int rows, int* hist, cudaStream_t stream) {
+  RowValues runs = {};
+  runs.v[1] = rows;
+  return launch_histogram_sum(partial, runs, 1, hist, stream);
 }
 
 }  // namespace

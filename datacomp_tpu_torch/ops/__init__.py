@@ -1,8 +1,14 @@
 """Device ops of the port: each a hand-written CUDA kernel with its plain
 PyTorch version beside it (K1 histogram, K2 encode, K3 decode, K4 codebook,
-and K1's A/B variants K1s and K1p)."""
+and K1's A/B variants K1s and K1p).  K1-K4 also take a batch of chunks in one
+launch (``*_batch``), each batched entry point with its own counts."""
 
-from .codebook import codebook, codebook_reference
+from . import codebook as _codebook_mod
+from . import decode as _decode_mod
+from . import encode as _encode_mod
+from . import histogram as _histogram_mod
+from ._build import MAX_ROWS
+from .codebook import codebook, codebook_batch, codebook_batch_reference, codebook_reference
 from .codebook import kernel_launches as _codebook_launches
 from .codebook import reference_calls as _codebook_references
 
@@ -12,6 +18,8 @@ from .decode import (
     reference_calls as _decode_references,
     build_decode_tables,
     decode,
+    decode_batch,
+    decode_batch_reference,
     decode_reference,
     decode_tables_to_torch,
     max_code_len,
@@ -23,10 +31,17 @@ from .encode import (
     reference_calls as _encode_references,
     codebook_to_torch,
     encode,
+    encode_batch,
+    encode_batch_reference,
     encode_reference,
     words_to_bytes,
 )
-from .histogram import histogram, histogram_reference
+from .histogram import (
+    histogram,
+    histogram_batch,
+    histogram_batch_reference,
+    histogram_reference,
+)
 from .histogram import kernel_launches as _histogram_launches
 from .histogram import reference_calls as _histogram_references
 from .histogram_variants import (
@@ -48,6 +63,10 @@ COUNTERS = {
     "codebook": (_codebook_launches, _codebook_references),
     "histogram_stacked": (_stacked_launches, _stacked_references),
     "histogram_partial": (_partial_launches, _partial_references),
+    "histogram_batch": (_histogram_mod.batch_launches, _histogram_mod.batch_reference_calls),
+    "codebook_batch": (_codebook_mod.batch_launches, _codebook_mod.batch_reference_calls),
+    "encode_batch": (_encode_mod.batch_launches, _encode_mod.batch_reference_calls),
+    "decode_batch": (_decode_mod.batch_launches, _decode_mod.batch_reference_calls),
 }
 
 
@@ -59,10 +78,13 @@ def reset_counters() -> None:
 
 __all__ = [
     "COUNTERS",
+    "MAX_ROWS",
     "reset_counters",
     "TABLE_BITS",
     "build_decode_tables",
     "decode",
+    "decode_batch",
+    "decode_batch_reference",
     "decode_reference",
     "decode_tables_to_torch",
     "max_code_len",
@@ -70,11 +92,17 @@ __all__ = [
     "MAX_CODE_LEN",
     "codebook_to_torch",
     "encode",
+    "encode_batch",
+    "encode_batch_reference",
     "encode_reference",
     "words_to_bytes",
     "histogram",
+    "histogram_batch",
+    "histogram_batch_reference",
     "histogram_reference",
     "codebook",
+    "codebook_batch",
+    "codebook_batch_reference",
     "codebook_reference",
     "PARTIAL_K",
     "STACKED",

@@ -12,7 +12,10 @@ several processes may share a checkout, so the build sits behind a thread lock
 and a file lock.
 
 Every C entry point launches on the stream it is given and returns
-``cudaGetLastError()``; :func:`check` raises when that is not 0.
+``cudaGetLastError()``; :func:`check` raises when that is not 0.  The codec
+kernels take a batch of chunks (rows) a launch; their per-row lengths and
+offsets travel as host arrays of int64 (:func:`row_values`) into the
+launch's parameters, at most :data:`MAX_ROWS` rows.
 """
 
 from __future__ import annotations
@@ -37,16 +40,21 @@ NVCC_FLAGS = (
     "-Xcompiler", "-fPIC",
 )
 
+#: rows a batched launch takes (``csrc/rows.cuh``'s kMaxRows): the config's
+#: largest ``device.batch_chunks``
+MAX_ROWS = 16
+
 _P = ctypes.c_void_p
 _I64 = ctypes.c_int64
 _I32 = ctypes.c_int32
-#: C entry point -> argument types (every pointer and the stream: c_void_p)
+#: C entry point -> argument types (every pointer, host arrays included, and
+#: the stream: c_void_p)
 _SIGNATURES = {
-    "dcz_histogram": (_P, _I64, _P, _P, _I32, _P),
+    "dcz_histogram": (_P, _I64, _P, _I32, _P, _P, _I32, _P),
     "dcz_encode_tile_symbols": (),
-    "dcz_encode": (_P, _I64, _I64, _P, _P, _P, _I64, _P, _I32, _P, _P),
-    "dcz_decode": (_P, _I64, _P, _I64, _P, _P, _P, _I32, _I64, _P, _P, _P),
-    "dcz_codebook": (_P, _P, _P, _P),
+    "dcz_encode": (_P, _I64, _P, _I32, _P, _P, _P, _I64, _P, _I32, _P, _P),
+    "dcz_decode": (_P, _P, _P, _P, _P, _P, _P, _I32, _I32, _P, _P, _P, _P),
+    "dcz_codebook": (_P, _P, _P, _I32, _P),
     "dcz_histogram_stacked_rows": (_I32, _P),
     "dcz_histogram_stacked": (_P, _I64, _I32, _I32, _P, _P, _I32, _P),
     "dcz_histogram_partial": (_P, _I64, _I32, _P, _P, _I32, _P),
@@ -176,3 +184,41 @@ def check_tensor(t: torch.Tensor, name: str, dtype: torch.dtype,
         )
     if numel is not None and t.numel() != numel:
         raise ValueError(f"{name} must hold {numel} elements, got {t.numel()}")
+
+
+def row_values(values) -> ctypes.Array:
+    """Per-row values of a batched launch as a host int64 array for a C entry
+    point (which copies them into the launch's parameters)."""
+    values = [int(v) for v in values]
+    return (ctypes.c_int64 * len(values))(*values)
+
+
+def check_matrix(t: torch.Tensor, name: str, dtype: torch.dtype, rows: int | None = None,
+                 cols: int | None = None) -> int:
+    """Raise unless ``t`` is a contiguous 2-D tensor of ``dtype`` with 1 to
+    :data:`MAX_ROWS` rows (``rows`` of them, and ``cols`` columns, where
+    given); return its rows."""
+    if t.dtype != dtype or t.dim() != 2 or not t.is_contiguous():
+        raise ValueError(
+            f"{name} must be a contiguous 2-D {dtype} tensor, got {t.dtype} of shape "
+            f"{tuple(t.shape)}"
+        )
+    if not 1 <= t.shape[0] <= MAX_ROWS:
+        raise ValueError(f"{name} must hold 1 to {MAX_ROWS} rows, got {t.shape[0]}")
+    if rows is not None and t.shape[0] != rows:
+        raise ValueError(f"{name} must hold {rows} rows, got {t.shape[0]}")
+    if cols is not None and t.shape[1] != cols:
+        raise ValueError(f"{name} must have {cols} columns, got {t.shape[1]}")
+    return t.shape[0]
+
+
+def check_valid_lens(valid_lens, rows: int, n: int) -> list:
+    """``valid_lens`` as a list of ``rows`` ints; raise unless each lies in
+    ``[0, n]``."""
+    valid_lens = [int(v) for v in valid_lens]
+    if len(valid_lens) != rows:
+        raise ValueError(f"{len(valid_lens)} valid lengths for {rows} rows")
+    for v in valid_lens:
+        if not 0 <= v <= n:
+            raise ValueError(f"valid_len {v} outside [0, {n}]")
+    return valid_lens

@@ -8,6 +8,8 @@ int32[256] histogram.  The lengths are optimal and uncapped; lengths above 32
 are exact, their codes meaningless.  The kernel is ``csrc/codebook.cu``; it
 carries weights in 32 bits, exact while the histogram's total is at most
 2^32 - 2 (any chunk below 2^31 bytes), where the plain version's are 64-bit.
+:func:`codebook_batch` builds a batch of codebooks in one launch, as the JAX
+service's batched pipeline vmaps ``device_codebook``.
 """
 
 from __future__ import annotations
@@ -25,6 +27,8 @@ _MASK32 = 0xFFFFFFFF
 
 kernel_launches = _build.LaunchCounter()
 reference_calls = _build.LaunchCounter()
+batch_launches = _build.LaunchCounter()
+batch_reference_calls = _build.LaunchCounter()
 
 
 def _merge_depths(leaf_freqs: list, nsym: int) -> list:
@@ -58,6 +62,17 @@ def codebook_reference(hist: torch.Tensor):
     """Plain PyTorch: a stable sort of the keys, the merge as a loop on the
     host, and the canonical codes computed over the whole table at once."""
     reference_calls.add()
+    return _codebook_plain(hist)
+
+
+def codebook_batch_reference(hist: torch.Tensor):
+    """Plain PyTorch: the plain codebook of each row."""
+    batch_reference_calls.add()
+    lengths, codes = zip(*(_codebook_plain(row) for row in hist))
+    return torch.stack(lengths), torch.stack(codes)
+
+
+def _codebook_plain(hist: torch.Tensor):
     dev = hist.device
     freqs = hist.to(torch.int64)
     present = freqs > 0
@@ -88,6 +103,20 @@ def codebook_reference(hist: torch.Tensor):
     return lengths.to(torch.int32), codes.to(torch.uint32)
 
 
+def _launch(hist: torch.Tensor, counter):
+    """One launch over the rows of ``hist`` (int32[rows, 256], or int32[256]
+    for one histogram), a block a row; the results take ``hist``'s shape."""
+    lengths = torch.empty_like(hist)
+    codes = torch.empty_like(hist, dtype=torch.uint32)
+    lib = _build.library()
+    with torch.cuda.device(hist.device):
+        rc = lib.dcz_codebook(hist.data_ptr(), lengths.data_ptr(), codes.data_ptr(),
+                              hist.numel() // NSYM, _build.stream(hist))
+    _build.check(rc, "codebook")
+    counter.add()
+    return lengths, codes
+
+
 def codebook(hist: torch.Tensor):
     """``(lengths int32[256], codes uint32[256])`` from an int32[256] histogram.
 
@@ -97,12 +126,16 @@ def codebook(hist: torch.Tensor):
     _build.check_tensor(hist, "hist", torch.int32, NSYM)
     if _build.on_cpu(hist):
         return codebook_reference(hist)
-    lengths = torch.empty(NSYM, dtype=torch.int32, device=hist.device)
-    codes = torch.empty(NSYM, dtype=torch.uint32, device=hist.device)
-    lib = _build.library()
-    with torch.cuda.device(hist.device):
-        rc = lib.dcz_codebook(hist.data_ptr(), lengths.data_ptr(), codes.data_ptr(),
-                              _build.stream(hist))
-    _build.check(rc, "codebook")
-    kernel_launches.add()
-    return lengths, codes
+    return _launch(hist, kernel_launches)
+
+
+def codebook_batch(hist: torch.Tensor):
+    """``(lengths int32[rows, 256], codes uint32[rows, 256])`` from
+    int32[rows, 256] histograms (1 to ``MAX_ROWS`` rows), row by row equal to
+    :func:`codebook`.  A CUDA tensor launches the kernel once for all rows; a
+    CPU tensor takes the plain version.
+    """
+    _build.check_matrix(hist, "hist", torch.int32, cols=NSYM)
+    if _build.on_cpu(hist):
+        return codebook_batch_reference(hist)
+    return _launch(hist, batch_launches)

@@ -10,7 +10,8 @@ the sub-block's bit range and synchronising their starts in rounds (at most
 31), the stream staged in shared memory, a direct table for codes of up to 12
 bits, and 16-byte stores of the decoded bytes.  Its header sets out the
 schedule; ``tests/test_torch_decode_schedule.py`` holds a numpy model of it
-to the plain version.
+to the plain version.  :func:`decode_batch` decodes a batch of chunks in one
+launch (the vmapped decoder of the JAX service's batched decode).
 
 The numpy helpers here are the JAX package's, re-homed because importing
 anything under ``datacomp_tpu.ops`` loads jax; tests hold them equal.
@@ -30,6 +31,8 @@ TABLE_BITS = 16
 
 kernel_launches = _build.LaunchCounter()
 reference_calls = _build.LaunchCounter()
+batch_launches = _build.LaunchCounter()
+batch_reference_calls = _build.LaunchCounter()
 
 
 def build_decode_tables(lengths: np.ndarray, table_bits: int = TABLE_BITS):
@@ -78,28 +81,38 @@ def decode_tables_to_torch(limits: np.ndarray, adj: np.ndarray, sym: np.ndarray,
     )
 
 
-def _check_args(words, gaps, limits, adj, sym, subblock, n_out, stats) -> None:
+def _check_tables(words, gaps, limits, adj, sym, subblock, stats, rows: int) -> None:
     _build.check_tensor(words, "words", torch.uint32)
     if stats is not None:
         _build.check_tensor(stats, "stats", torch.int64, 2)
     _build.check_tensor(gaps, "gaps", torch.uint32)
-    _build.check_tensor(limits, "limits", torch.int32, TABLE_BITS)
-    _build.check_tensor(adj, "adj", torch.int32, TABLE_BITS)
-    _build.check_tensor(sym, "sym", torch.int32, 256)
+    _build.check_matrix(limits, "limits", torch.int32, rows, TABLE_BITS)
+    _build.check_matrix(adj, "adj", torch.int32, rows, TABLE_BITS)
+    _build.check_matrix(sym, "sym", torch.int32, rows, 256)
     if subblock <= 0:
         raise ValueError(f"subblock must be positive, got {subblock}")
-    if not 0 <= n_out <= gaps.numel() * subblock:
-        raise ValueError(
-            f"n_out {n_out} outside [0, {gaps.numel()} sub-blocks x {subblock}]"
-        )
 
 
-def decode_reference(words, gaps, limits, adj, sym, subblock: int, n_out: int):
-    """Plain PyTorch: vectorised over sub-blocks, one loop step per symbol.
+def _check_rows(word_offsets: list, gap_offsets: list, n_outs: list, words, gaps,
+                subblock: int) -> None:
+    """Raise unless the offsets cut ``words`` and ``gaps`` into one piece a
+    row, and each row's ``n_out`` fits its sub-blocks."""
+    rows = len(n_outs)
+    for name, offsets, t in (("word", word_offsets, words), ("gap", gap_offsets, gaps)):
+        if (len(offsets) != rows + 1 or offsets[0] != 0 or offsets[-1] != t.numel()
+                or any(a > b for a, b in zip(offsets, offsets[1:]))):
+            raise ValueError(
+                f"{name} offsets {offsets} must rise from 0 to {t.numel()} in {rows + 1} steps"
+            )
+    for b, n_out in enumerate(n_outs):
+        nsub = gap_offsets[b + 1] - gap_offsets[b]
+        if not 0 <= n_out <= nsub * subblock:
+            raise ValueError(
+                f"n_out {n_out} outside [0, {nsub} sub-blocks x {subblock}]"
+            )
 
-    Each lane keeps its absolute bit position and reads the 48 bits that start
-    at its word (two int64-held words), which cover any 16-bit window."""
-    reference_calls.add()
+
+def _decode_plain(words, gaps, limits, adj, sym, subblock: int, n_out: int):
     dev = words.device
     w = torch.cat([words.long(), torch.zeros(2, dtype=torch.int64, device=dev)])
     last = w.numel() - 2
@@ -115,6 +128,51 @@ def decode_reference(words, gaps, limits, adj, sym, subblock: int, n_out: int):
         out[:, j] = sym_[idx].to(torch.uint8)
         pos = pos + ln
     return out.reshape(-1)[:n_out]
+
+
+def decode_reference(words, gaps, limits, adj, sym, subblock: int, n_out: int):
+    """Plain PyTorch: vectorised over sub-blocks, one loop step per symbol.
+
+    Each lane keeps its absolute bit position and reads the 48 bits that start
+    at its word (two int64-held words), which cover any 16-bit window."""
+    reference_calls.add()
+    return _decode_plain(words, gaps, limits, adj, sym, subblock, n_out)
+
+
+def decode_batch_reference(words, word_offsets, gaps, gap_offsets, limits, adj, sym,
+                           subblock: int, n_outs):
+    """Plain PyTorch: the plain decoder on each row, outputs concatenated."""
+    batch_reference_calls.add()
+    wo, go = list(word_offsets), list(gap_offsets)
+    return torch.cat([
+        _decode_plain(words[wo[b] : wo[b + 1]], gaps[go[b] : go[b + 1]], limits[b], adj[b],
+                      sym[b], subblock, int(n_out))
+        for b, n_out in enumerate(n_outs)
+    ])
+
+
+def _launch(words, word_offsets, gaps, gap_offsets, limits, adj, sym, subblock: int,
+            n_outs: list, stats, counter) -> torch.Tensor:
+    """One launch over the rows: row ``b``'s stream is ``words[word_offsets[b]
+    : word_offsets[b + 1]]``, its gap array the same cut of ``gaps``, its
+    tables row ``b`` of ``limits``, ``adj`` and ``sym``; its ``n_outs[b]``
+    bytes follow the rows before it in the output."""
+    out_offsets = [0]
+    for n_out in n_outs:
+        out_offsets.append(out_offsets[-1] + n_out)
+    out = torch.empty(out_offsets[-1], dtype=torch.uint8, device=words.device)
+    lib = _build.library()
+    with torch.cuda.device(words.device):
+        rc = lib.dcz_decode(
+            words.data_ptr(), _build.row_values(word_offsets), gaps.data_ptr(),
+            _build.row_values(gap_offsets), limits.data_ptr(), adj.data_ptr(),
+            sym.data_ptr(), len(n_outs), subblock, _build.row_values(out_offsets),
+            out.data_ptr(), stats.data_ptr() if stats is not None else None,
+            _build.stream(words),
+        )
+    _build.check(rc, "decode")
+    counter.add()
+    return out
 
 
 def decode(words: torch.Tensor, gaps: torch.Tensor, limits: torch.Tensor,
@@ -133,21 +191,49 @@ def decode(words: torch.Tensor, gaps: torch.Tensor, limits: torch.Tensor,
     ``None`` only.
     """
     subblock, n_out = int(subblock), int(n_out)
-    _check_args(words, gaps, limits, adj, sym, subblock, n_out, stats)
+    for name, t, numel in (("limits", limits, TABLE_BITS), ("adj", adj, TABLE_BITS),
+                           ("sym", sym, 256)):
+        _build.check_tensor(t, name, torch.int32, numel)
+    limits, adj, sym = limits.view(1, -1), adj.view(1, -1), sym.view(1, -1)
+    _check_tables(words, gaps, limits, adj, sym, subblock, stats, 1)
+    _check_rows([0, words.numel()], [0, gaps.numel()], [n_out], words, gaps, subblock)
     extra = () if stats is None else (stats,)
     if _build.on_cpu(words, gaps, limits, adj, sym, *extra):
         if stats is not None:
             raise ValueError("stats counts the kernel's rounds: it needs CUDA tensors")
-        return decode_reference(words, gaps, limits, adj, sym, subblock, n_out)
-    out = torch.empty(n_out, dtype=torch.uint8, device=words.device)
-    lib = _build.library()
-    with torch.cuda.device(words.device):
-        rc = lib.dcz_decode(
-            words.data_ptr(), words.numel(), gaps.data_ptr(), gaps.numel(),
-            limits.data_ptr(), adj.data_ptr(), sym.data_ptr(), subblock, n_out,
-            out.data_ptr(), stats.data_ptr() if stats is not None else None,
-            _build.stream(words),
-        )
-    _build.check(rc, "decode")
-    kernel_launches.add()
-    return out
+        return decode_reference(words, gaps, limits[0], adj[0], sym[0], subblock, n_out)
+    return _launch(words, [0, words.numel()], gaps, [0, gaps.numel()], limits, adj, sym,
+                   subblock, [n_out], stats, kernel_launches)
+
+
+def decode_batch(words: torch.Tensor, word_offsets, gaps: torch.Tensor, gap_offsets,
+                 limits: torch.Tensor, adj: torch.Tensor, sym: torch.Tensor, subblock: int,
+                 n_outs, stats: torch.Tensor | None = None) -> torch.Tensor:
+    """Decode a batch of chunks → uint8[sum(n_outs)], the rows' outputs
+    concatenated, row by row equal to :func:`decode`.
+
+    Row ``b``'s stream is ``words[word_offsets[b] : word_offsets[b + 1]]``
+    (its :func:`payload_to_words`), its gap array the same cut of ``gaps`` by
+    ``gap_offsets``, its tables row ``b`` of ``limits``/``adj`` (int32[rows,
+    16]) and ``sym`` (int32[rows, 256]); the offsets and ``n_outs`` are ints
+    on the host, 1 to ``MAX_ROWS`` rows.  A CUDA tensor launches the kernel
+    once for all rows; a CPU tensor takes the plain version.  ``stats`` sums
+    over the rows, as :func:`decode`'s.
+    """
+    subblock = int(subblock)
+    word_offsets = [int(o) for o in word_offsets]
+    gap_offsets = [int(o) for o in gap_offsets]
+    n_outs = [int(n) for n in n_outs]
+    rows = _build.check_matrix(limits, "limits", torch.int32, cols=TABLE_BITS)
+    _check_tables(words, gaps, limits, adj, sym, subblock, stats, rows)
+    if len(n_outs) != rows:
+        raise ValueError(f"{len(n_outs)} output lengths for {rows} rows")
+    _check_rows(word_offsets, gap_offsets, n_outs, words, gaps, subblock)
+    extra = () if stats is None else (stats,)
+    if _build.on_cpu(words, gaps, limits, adj, sym, *extra):
+        if stats is not None:
+            raise ValueError("stats counts the kernel's rounds: it needs CUDA tensors")
+        return decode_batch_reference(words, word_offsets, gaps, gap_offsets, limits, adj,
+                                      sym, subblock, n_outs)
+    return _launch(words, word_offsets, gaps, gap_offsets, limits, adj, sym, subblock,
+                   n_outs, stats, batch_launches)

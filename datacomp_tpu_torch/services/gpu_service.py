@@ -1,7 +1,6 @@
 """GPU backend: the device chunk codec and the compression service.
 
-Port of ``datacomp_tpu/services/tpu_service.py`` to PyTorch and CUDA, one
-chunk at a time:
+Port of ``datacomp_tpu/services/tpu_service.py`` to PyTorch and CUDA:
 
 * encode with a host codebook (``codebook_mode`` ``java`` or ``fast``): the
   shared host prepass (SHA-256, native histogram, codebook, raw-store
@@ -17,7 +16,12 @@ chunk at a time:
 * decode: raw-stored chunks pass through; v2 chunks with codes of at most
   16 bits run the gap-array decoder kernel K3; v1 chunks and deeper codebooks
   go to the host codec through a counted route;
-* availability: a 1 KB histogram on the device (kernel K1).
+* availability: a 1 KB histogram on the device (kernel K1);
+* batches (``device.batch_chunks``, auto 4 on a CUDA device): the pipeline
+  hands the codec groups of chunks, and each group's device members run
+  every kernel once (``histogram_batch``, ``codebook_batch``,
+  ``encode_batch``, ``decode_batch``), with one upload and one copy back, as
+  ``TpuChunkCodec.encode_chunk_batch`` and ``decode_chunk_batch`` do.
 
 Unlike the JAX service there is no catch-all fallback to the CPU: a device
 error propagates.  The device is ``config.device.platform`` unless the caller
@@ -47,11 +51,15 @@ from ..ops import (
     TABLE_BITS,
     build_decode_tables,
     codebook,
+    codebook_batch,
     codebook_to_torch,
     decode,
+    decode_batch,
     decode_tables_to_torch,
     encode,
+    encode_batch,
     histogram,
+    histogram_batch,
     max_code_len,
     payload_to_words,
     words_to_bytes,
@@ -155,10 +163,54 @@ class GpuFrequencyService(FrequencyService):
         return f"GPU Frequency Analysis ({name})"
 
 
+def resolve_batch_chunks(setting: int, device) -> int:
+    """Chunks a device call takes (``ChunkCodec.batch_chunks``):
+    ``device.batch_chunks`` when it is set, else the JAX service's auto rule
+    for a directly attached device (``TpuChunkCodec.batch_chunks``): 4 on a
+    CUDA device, and 1 on the CPU, where the plain versions would only
+    serialise chunks that the pipeline's workers already run side by side.
+    The JAX rule for its relay has no counterpart here."""
+    if setting:
+        return setting
+    return 4 if torch.device(device).type == "cuda" else 1
+
+
+def _fetch(parts: list) -> np.ndarray:
+    """The int32 views of ``parts``, concatenated on the device, in one copy
+    to the host."""
+    return torch.cat([_as_int32(p) for p in parts]).cpu().numpy()
+
+
+def _split(flat: np.ndarray, sizes: list) -> list:
+    """``flat`` cut into consecutive pieces of ``sizes`` elements."""
+    return np.split(flat, np.cumsum(sizes)[:-1])
+
+
+def _is_raw_stored(meta, header) -> bool:
+    return (
+        header.version >= ct.VERSION_V2
+        and not meta.code_lengths.any()
+        and meta.compressed_size == meta.original_size
+    )
+
+
+def _decodes_on_device(meta, header) -> bool:
+    """A v2 chunk with a gap array and codes of 1 to 16 bits: K3 takes it."""
+    return (
+        header.version >= ct.VERSION_V2
+        and meta.gap_bits is not None
+        and meta.gap_bits.size > 0
+        and header.subblock_symbols > 0
+        and 0 < max_code_len(meta.code_lengths) <= TABLE_BITS
+    )
+
+
 class GpuChunkCodec(ChunkCodec):
     """Per-chunk device codec: host codebook → device encode (K2), or in
     device-codebook mode histogram (K1) → codebook (K4) → encode (K2) on the
-    device; gap-array device decode (K3) for v2 containers."""
+    device; gap-array device decode (K3) for v2 containers.  A group of
+    chunks (:meth:`encode_chunk_batch`, :meth:`decode_chunk_batch`) launches
+    each kernel's batched entry point once for all of its device members."""
 
     def __init__(self, config: AppConfig, device: torch.device):
         self.config = config
@@ -170,6 +222,10 @@ class GpuChunkCodec(ChunkCodec):
         # an optimal code spends at most H + 1 <= 9 bits a byte on the chunk
         # it was built from; the encode raises if a stream ever exceeds this
         self.out_words = (9 * self.padded_size + 31) // 32 + 2
+
+    @property
+    def batch_chunks(self) -> int:
+        return resolve_batch_chunks(self.config.device.batch_chunks, self.device)
 
     # -- encode -------------------------------------------------------------
 
@@ -214,41 +270,53 @@ class GpuChunkCodec(ChunkCodec):
             )
         return sha, lengths, codes, opt_bits, None
 
-    def _upload(self, data: np.ndarray) -> torch.Tensor:
-        """The chunk, zero-padded to the codec's chunk size, on the device."""
-        n = data.size
-        x = torch.empty(self.padded_size, dtype=torch.uint8, device=self.device)
-        x[:n].copy_(_host_tensor(data))
-        x[n:].zero_()
+    @staticmethod
+    def _host_route(lengths) -> bool:
+        """True, and counted, for a host codebook deeper than the encoder's
+        32 bits: such a chunk encodes on the host."""
+        if lengths is not None and max_code_len(lengths) > MAX_CODE_LEN:
+            host_encode_routes.add()
+            return True
+        return False
+
+    def _upload(self, datas: list) -> torch.Tensor:
+        """The chunks as the rows of one uint8[len(datas), padded_size]
+        device tensor: each copied into its row, the row's tail zeroed on the
+        device.  A group's rows are its live members only: the JAX service
+        pads a group with empty chunks up to ``batch_chunks`` rows so that
+        one static executable serves every group, and an empty row encodes to
+        nothing, so leaving them out changes no byte."""
+        x = torch.empty((len(datas), self.padded_size), dtype=torch.uint8, device=self.device)
+        for row, data in zip(x, datas):
+            row[: data.size].copy_(_host_tensor(data))
+            row[data.size :].zero_()
         return x
 
     def encode_chunk(self, data: np.ndarray, metrics: StageMetrics) -> EncodedChunk:
         sha, lengths, codes, opt_bits, finished = self._host_prepass(data, metrics)
         if finished is not None:
             return finished
+        if self._host_route(lengths):
+            return self._cpu.encode_chunk(data, metrics)
+        return self._encode_prepared(data, sha, lengths, codes, opt_bits, metrics)
+
+    def _encode_prepared(self, data, sha, lengths, codes, opt_bits, metrics) -> EncodedChunk:
+        """One chunk on the device, after its host prepass."""
         if lengths is None:
             if self.config.compression.format_version >= 2:
                 return self._encode_device_codebook_v2(data, sha, opt_bits, metrics)
             return self._encode_device_codebook_v1(data, sha, metrics)
-        if max_code_len(lengths) > MAX_CODE_LEN:
-            host_encode_routes.add()
-            return self._cpu.encode_chunk(data, metrics)
 
         n = data.size
         v2 = self.config.compression.format_version >= 2
         with metrics.timed(Stage.ENCODING, n):
-            x = self._upload(data)
+            x = self._upload([data])[0]
             lens_t, codes_t = codebook_to_torch(lengths, codes, self.device)
             words, total_bits, gaps = encode(
                 x, n, lens_t, codes_t, self.out_words, self.subblock if v2 else 0
             )
             tb = int(total_bits)
-            if tb != opt_bits:
-                raise RuntimeError(
-                    f"device encode wrote {tb} bits; the codebook predicts {opt_bits}"
-                )
-            if tb > self.out_words * 32:
-                raise RuntimeError("encoded stream exceeded device word capacity")
+            self._check_total(tb, opt_bits)
             payload = words_to_bytes(words[: (tb + 31) // 32].cpu().numpy(), tb)
             gap_bits = None
             if v2:
@@ -263,20 +331,16 @@ class GpuChunkCodec(ChunkCodec):
         before anything is fetched; the device's total must equal it."""
         n = data.size
         nsub = (n + self.subblock - 1) // self.subblock
-        nw = min((opt_bits + 31) // 32, self.out_words)
+        nw = self._live_words(opt_bits)
         with metrics.timed(Stage.ENCODING, n):
-            x = self._upload(data)
+            x = self._upload([data])[0]
             lens_t, codes_t = codebook(histogram(x, n))
             words, total_bits, gaps = encode(x, n, lens_t, codes_t, self.out_words, self.subblock)
-            flat = torch.cat([_as_int32(total_bits), lens_t, _as_int32(gaps[:nsub]),
-                              _as_int32(words[:nw])]).cpu().numpy()
+            flat = _fetch([total_bits, lens_t, gaps[:nsub], words[:nw]])
             tb = int(flat[:2].view(np.int64)[0])
             lengths = flat[2:258].copy()
             _check_depth(lengths)
-            if tb != opt_bits:
-                raise RuntimeError(
-                    f"device encode wrote {tb} bits; an optimal code needs {opt_bits}"
-                )
+            self._check_total(tb, opt_bits)
             gap_bits = flat[258 : 258 + nsub].view(np.uint32).copy()
             payload = words_to_bytes(flat[258 + nsub :].view(np.uint32), tb)
         return EncodedChunk(payload, lengths, sha, gap_bits)
@@ -288,7 +352,7 @@ class GpuChunkCodec(ChunkCodec):
         v1 device branch of ``TpuChunkCodec._encode_chunk``)."""
         n = data.size
         with metrics.timed(Stage.FREQUENCY_ANALYSIS, n):
-            x = self._upload(data)
+            x = self._upload([data])[0]
             hist_t = histogram(x, n)
         with metrics.timed(Stage.HUFFMAN_TREE_BUILD, n):
             lens_t, codes_t = codebook(hist_t)
@@ -297,33 +361,151 @@ class GpuChunkCodec(ChunkCodec):
             opt_bits = int(hist.astype(np.int64) @ lengths.astype(np.int64))
         with metrics.timed(Stage.ENCODING, n):
             words, total_bits, _ = encode(x, n, lens_t, codes_t, self.out_words)
-            nw = min((opt_bits + 31) // 32, self.out_words)
-            flat = torch.cat([_as_int32(total_bits), _as_int32(words[:nw])]).cpu().numpy()
+            flat = _fetch([total_bits, words[: self._live_words(opt_bits)]])
             tb = int(flat[:2].view(np.int64)[0])
-            if tb != opt_bits:
-                raise RuntimeError(
-                    f"device encode wrote {tb} bits; the codebook predicts {opt_bits}"
-                )
+            self._check_total(tb, opt_bits)
             payload = words_to_bytes(flat[2:].view(np.uint32), tb)
         return EncodedChunk(payload, lengths.copy(), sha, None)
+
+    # -- batched encode -----------------------------------------------------
+
+    def encode_chunk_batch(self, datas, metrics: StageMetrics) -> list:
+        """Encode a group of chunks (``TpuChunkCodec.encode_chunk_batch``).
+
+        Each member's host prepass runs first.  Empty and raw-stored members
+        are then finished, and a host codebook deeper than 32 bits takes the
+        counted host route; every other member joins one device group, whose
+        kernels each launch once, with one copy back (two in device-codebook
+        v1).  A group of one takes the per-chunk path."""
+        if len(datas) == 1 or self.batch_chunks <= 1:
+            return [self.encode_chunk(d, metrics) for d in datas]
+        results: list = [None] * len(datas)
+        group = []  # (index, data, sha, lengths, codes, opt_bits)
+        for i, data in enumerate(datas):
+            sha, lengths, codes, opt_bits, finished = self._host_prepass(data, metrics)
+            if finished is not None:
+                results[i] = finished
+            elif self._host_route(lengths):
+                results[i] = self._cpu.encode_chunk(data, metrics)
+            else:
+                group.append((i, data, sha, lengths, codes, opt_bits))
+        if len(group) == 1:
+            i, *member = group[0]
+            results[i] = self._encode_prepared(*member, metrics)
+        elif group:
+            if group[0][3] is not None:  # the mode decides: every member alike
+                encs = self._encode_group(group, metrics)
+            elif self.config.compression.format_version >= 2:
+                encs = self._encode_group_device_codebook_v2(group, metrics)
+            else:
+                encs = self._encode_group_device_codebook_v1(group, metrics)
+            for (i, *_), enc in zip(group, encs):
+                results[i] = enc
+        return results
+
+    def _members(self, group: list) -> tuple:
+        """The group's (datas, valid lengths, gap-array lengths)."""
+        datas = [m[1] for m in group]
+        valid = [d.size for d in datas]
+        return datas, valid, [(n + self.subblock - 1) // self.subblock for n in valid]
+
+    def _live_words(self, opt_bits: int) -> int:
+        return min((opt_bits + 31) // 32, self.out_words)
+
+    def _check_total(self, tb: int, opt_bits: int) -> None:
+        if tb != opt_bits:
+            raise RuntimeError(f"device encode wrote {tb} bits; the codebook predicts {opt_bits}")
+        if tb > self.out_words * 32:
+            raise RuntimeError("encoded stream exceeded device word capacity")
+
+    def _encode_group(self, group: list, metrics: StageMetrics) -> list:
+        """Host codebooks (``java``/``fast``, v1 and v2): the codebooks go up
+        in one copy, K2 runs once, and one copy brings back every member's
+        total bits, gap array (v2) and live words, sized by its ``opt_bits``."""
+        v2 = self.config.compression.format_version >= 2
+        datas, valid, nsubs = self._members(group)
+        nsubs = nsubs if v2 else []
+        nws = [self._live_words(m[5]) for m in group]
+        with metrics.timed(Stage.ENCODING, sum(valid)):
+            x = self._upload(datas)
+            tables = np.stack([np.stack([m[3] for m in group]).astype(np.int32),
+                               np.stack([m[4] for m in group]).astype(np.uint32).view(np.int32)])
+            t = _host_tensor(tables).to(self.device)  # int32[2, rows, 256]
+            words, totals, gaps = encode_batch(x, valid, t[0], t[1].view(torch.uint32),
+                                               self.out_words, self.subblock if v2 else 0)
+            parts = [totals] + [gaps[b, :k] for b, k in enumerate(nsubs)]
+            pieces = _split(_fetch(parts + [words[b, :k] for b, k in enumerate(nws)]),
+                            [2 * len(group)] + nsubs + nws)
+            tbs = pieces[0].view(np.int64)
+            out = []
+            for b, (_, _, sha, lengths, _, opt_bits) in enumerate(group):
+                self._check_total(int(tbs[b]), opt_bits)
+                gap_bits = pieces[1 + b].view(np.uint32).copy() if v2 else None
+                payload = words_to_bytes(pieces[1 + len(nsubs) + b].view(np.uint32), int(tbs[b]))
+                out.append(EncodedChunk(payload, lengths.astype(np.int32), sha, gap_bits))
+        return out
+
+    def _encode_group_device_codebook_v2(self, group: list, metrics: StageMetrics) -> list:
+        """Batched K1 → K4 → K2 with nothing fetched in between, then one copy
+        back of every member's total bits, lengths, gap array and live words;
+        each member's depth and total are checked as the per-chunk path does."""
+        datas, valid, nsubs = self._members(group)
+        nws = [self._live_words(m[5]) for m in group]
+        rows = len(group)
+        with metrics.timed(Stage.ENCODING, sum(valid)):
+            x = self._upload(datas)
+            lens_t, codes_t = codebook_batch(histogram_batch(x, valid))
+            words, totals, gaps = encode_batch(x, valid, lens_t, codes_t, self.out_words,
+                                               self.subblock)
+            parts = [totals, lens_t] + [gaps[b, :k] for b, k in enumerate(nsubs)]
+            pieces = _split(_fetch(parts + [words[b, :k] for b, k in enumerate(nws)]),
+                            [2 * rows, 256 * rows] + nsubs + nws)
+            tbs = pieces[0].view(np.int64)
+            lengths = pieces[1].reshape(rows, 256)
+            out = []
+            for b, (_, _, sha, _, _, opt_bits) in enumerate(group):
+                _check_depth(lengths[b])
+                self._check_total(int(tbs[b]), opt_bits)
+                payload = words_to_bytes(pieces[2 + rows + b].view(np.uint32), int(tbs[b]))
+                out.append(EncodedChunk(payload, lengths[b].copy(), sha,
+                                        pieces[2 + b].view(np.uint32).copy()))
+        return out
+
+    def _encode_group_device_codebook_v1(self, group: list, metrics: StageMetrics) -> list:
+        """Batched K1 → K4, one copy back of the histograms and lengths, every
+        member's depth checked before K2 (the host codec's error past 32
+        bits), batched K2, then one copy of the totals and live words."""
+        datas, valid, _ = self._members(group)
+        rows = len(group)
+        with metrics.timed(Stage.FREQUENCY_ANALYSIS, sum(valid)):
+            x = self._upload(datas)
+            hist_t = histogram_batch(x, valid)
+        with metrics.timed(Stage.HUFFMAN_TREE_BUILD, sum(valid)):
+            lens_t, codes_t = codebook_batch(hist_t)
+            hist, lengths = torch.cat([hist_t, lens_t]).cpu().numpy().reshape(2, rows, 256)
+            for row in lengths:
+                _check_depth(row)
+            opt_bits = (hist.astype(np.int64) * lengths.astype(np.int64)).sum(1)
+        with metrics.timed(Stage.ENCODING, sum(valid)):
+            words, totals, _ = encode_batch(x, valid, lens_t, codes_t, self.out_words)
+            nws = [self._live_words(int(bits)) for bits in opt_bits]
+            pieces = _split(_fetch([totals] + [words[b, :k] for b, k in enumerate(nws)]),
+                            [2 * rows] + nws)
+            tbs = pieces[0].view(np.int64)
+            out = []
+            for b, (_, _, sha, _, _, _) in enumerate(group):
+                self._check_total(int(tbs[b]), int(opt_bits[b]))
+                payload = words_to_bytes(pieces[1 + b].view(np.uint32), int(tbs[b]))
+                out.append(EncodedChunk(payload, lengths[b].copy(), sha, None))
+        return out
 
     # -- decode -------------------------------------------------------------
 
     def decode_chunk(self, payload, meta, header, metrics: StageMetrics) -> np.ndarray:
-        if (
-            header.version >= ct.VERSION_V2
-            and not meta.code_lengths.any()
-            and meta.compressed_size == meta.original_size
-        ):  # raw-stored incompressible chunk
+        if _is_raw_stored(meta, header):
             with metrics.timed(Stage.DECODING, meta.original_size):
                 return np.frombuffer(payload, dtype=np.uint8)
-        if not (
-            header.version >= ct.VERSION_V2
-            and meta.gap_bits is not None
-            and meta.gap_bits.size > 0
-            and header.subblock_symbols > 0
-            and 0 < max_code_len(meta.code_lengths) <= TABLE_BITS
-        ):
+        if not _decodes_on_device(meta, header):
             host_decode_routes.add()
             return self._cpu.decode_chunk(payload, meta, header, metrics)
 
@@ -336,6 +518,53 @@ class GpuChunkCodec(ChunkCodec):
             gaps = _host_tensor(meta.gap_bits.astype(np.uint32)).to(self.device)
             out = decode(words, gaps, *tables, header.subblock_symbols, meta.original_size)
             return out.cpu().numpy()
+
+    def decode_chunk_batch(self, payloads, metas, header, metrics: StageMetrics) -> list:
+        """Decode a group of chunks (``TpuChunkCodec.decode_chunk_batch``):
+        raw-stored members pass through, v1 members and codes deeper than 16
+        bits take the counted host route, and all other members go to one
+        launch of K3, whatever their depth; a lone such member takes the
+        per-chunk path.  The JAX service groups by its decoder's static
+        parameters; K3 reads each member's tables at run time."""
+        if self.batch_chunks <= 1 or len(payloads) == 1:
+            return [self.decode_chunk(p, m, header, metrics) for p, m in zip(payloads, metas)]
+        group = [j for j, m in enumerate(metas)
+                 if not _is_raw_stored(m, header) and _decodes_on_device(m, header)]
+        if len(group) == 1:
+            group = []
+        results = [None if j in group else self.decode_chunk(p, m, header, metrics)
+                   for j, (p, m) in enumerate(zip(payloads, metas))]
+        if group:
+            outs = self._decode_group([payloads[j] for j in group], [metas[j] for j in group],
+                                      header, metrics)
+            for j, out in zip(group, outs):
+                results[j] = out
+        return results
+
+    def _decode_group(self, payloads, metas, header, metrics: StageMetrics) -> list:
+        """Batched K3: the members' streams, gap arrays and tables go up in
+        one copy, and their outputs come back in one."""
+        rows = len(metas)
+        with metrics.timed(Stage.HUFFMAN_TREE_BUILD):
+            tables = [build_decode_tables(m.code_lengths) for m in metas]
+        n_outs = [m.original_size for m in metas]
+        with metrics.timed(Stage.DECODING, sum(n_outs)):
+            words = [payload_to_words(p).view(np.int32) for p in payloads]
+            gaps = [m.gap_bits.astype(np.uint32).view(np.int32) for m in metas]
+            word_offsets = np.cumsum([0] + [w.size for w in words]).tolist()
+            gap_offsets = np.cumsum([0] + [g.size for g in gaps]).tolist()
+            limits, adj, sym = (np.stack([t[k] for t in tables]).astype(np.int32)
+                                for k in range(3))
+            host = np.concatenate(words + gaps + [limits.ravel(), adj.ravel(), sym.ravel()])
+            t = _host_tensor(host).to(self.device)
+            w, g = word_offsets[-1], gap_offsets[-1]
+            pieces = torch.split(t, [w, g, TABLE_BITS * rows, TABLE_BITS * rows, 256 * rows])
+            out = decode_batch(
+                pieces[0].view(torch.uint32), word_offsets, pieces[1].view(torch.uint32),
+                gap_offsets, pieces[2].view(rows, TABLE_BITS), pieces[3].view(rows, TABLE_BITS),
+                pieces[4].view(rows, 256), header.subblock_symbols, n_outs,
+            ).cpu().numpy()
+        return _split(out, n_outs)
 
 
 class GpuCompressionService(CompressionService):

@@ -13,8 +13,9 @@ progress file written alongside the output.
 
 Per-chunk compute is delegated to a :class:`ChunkCodec`, so the host service
 (numpy + native C++) and the GPU service (CUDA kernels) share everything else.
-The JAX package's hooks for codecs that take several chunks per device program
-are left out until the port batches chunks.
+A device codec may take several chunks per call (:attr:`ChunkCodec.batch_chunks`,
+:meth:`ChunkCodec.encode_chunk_batch`, :meth:`ChunkCodec.decode_chunk_batch`);
+the pipeline groups its jobs by that count.
 """
 
 from __future__ import annotations
@@ -50,9 +51,23 @@ class EncodedChunk:
 class ChunkCodec(abc.ABC):
     """Per-chunk compute backend."""
 
+    #: chunks encoded per :meth:`encode_chunk_batch` call.  Device codecs
+    #: raise this to vmap several chunks into ONE device program, amortizing
+    #: per-program dispatch + transfer-call overhead (the role of the
+    #: reference's sliding-window device scheduler,
+    #: ``gpu/GpuCompressionService.java:232-320``); the pipeline groups its
+    #: jobs accordingly.
+    batch_chunks: int = 1
+
     @abc.abstractmethod
     def encode_chunk(self, data: np.ndarray, metrics: StageMetrics) -> EncodedChunk:
         ...
+
+    def encode_chunk_batch(
+        self, datas: List[np.ndarray], metrics: StageMetrics
+    ) -> List[EncodedChunk]:
+        """Encode several chunks; default = per-chunk loop (host codecs)."""
+        return [self.encode_chunk(d, metrics) for d in datas]
 
     @abc.abstractmethod
     def decode_chunk(
@@ -60,6 +75,18 @@ class ChunkCodec(abc.ABC):
         metrics: StageMetrics,
     ) -> np.ndarray:
         ...
+
+    def decode_chunk_batch(
+        self, payloads: List[bytes], metas: List[ct.ChunkMeta],
+        header: ct.ContainerHeader, metrics: StageMetrics,
+    ) -> List[np.ndarray]:
+        """Decode several chunks; default = per-chunk loop (host codecs).
+        Device codecs override to vmap compatible chunks into one program
+        (same dispatch-amortization story as :meth:`encode_chunk_batch`)."""
+        return [
+            self.decode_chunk(p, m, header, metrics)
+            for p, m in zip(payloads, metas)
+        ]
 
 
 # ---------------------------------------------------------------------------
@@ -243,36 +270,58 @@ class ChunkedPipeline:
                                 data = np.frombuffer(infile.read(n), dtype=np.uint8)
                     return index, offset, n, data
 
-                def job(index: int):
-                    index, offset, n, data = read_chunk(index)
-                    return index, offset, n, self.codec.encode_chunk(data, metrics)
+                def job(indices: List[int]):
+                    reads = [read_chunk(i) for i in indices]
+                    encs = self.codec.encode_chunk_batch(
+                        [r[3] for r in reads], metrics
+                    )
+                    return [
+                        (i, o, n, e) for (i, o, n, _), e in zip(reads, encs)
+                    ]
 
-                # a bounded sliding window of chunk jobs, one-in-one-out as
-                # the ordered writer drains the head
+                # group chunk indices into codec-sized batches, then run a
+                # bounded sliding window of batch jobs: submit up to
+                # `window` CHUNKS worth of jobs (the backpressure bound is
+                # counted in chunks, so batch codecs don't inflate it by
+                # their batch factor), one-in-one-out as the ordered writer
+                # drains the head
                 from collections import deque
                 from itertools import islice
 
-                todo = iter(range(resume_from, num_chunks))
+                bs = max(1, getattr(self.codec, "batch_chunks", 1))
+                idx_it = iter(range(resume_from, num_chunks))
+                todo = iter(
+                    lambda: list(islice(idx_it, bs)), []
+                )  # consecutive index groups of size <= bs
+                # floor division keeps the chunk bound tight, but batch
+                # codecs need >= 2 jobs in flight or the host prepass
+                # (sha256 + host histogram) never overlaps device encode
+                # and the sliding window degenerates to fully serial
+                # (round-3 advisor finding: window=4, bs=4 -> 1 job).  For
+                # bs > 1 the bound is therefore 2 batches (2*bs chunks) of
+                # buffered payloads — the price of overlap.
+                window_jobs = max(2 if bs > 1 else 1, self.window // bs)
                 inflight = deque(
-                    self._executor.submit(job, i) for i in islice(todo, self.window)
+                    self._executor.submit(job, g) for g in islice(todo, window_jobs)
                 )
                 while inflight:
-                    index, offset, n, enc = inflight.popleft().result()
+                    results = inflight.popleft().result()
                     nxt = next(todo, None)
                     if nxt is not None:
                         inflight.append(self._executor.submit(job, nxt))
-                    with metrics.timed(Stage.FILE_IO, len(enc.payload)):
-                        out.write(enc.payload)
-                    meta = ct.ChunkMeta(
-                        index, offset, n, compressed_offset, len(enc.payload),
-                        enc.sha256, enc.code_lengths, enc.gap_bits,
-                    )
-                    compressed_offset += len(enc.payload)
-                    done.append(meta)
-                    _append_partial_chunk(partial_fp, meta)
-                    if progress is not None:
-                        progress(len(done) / max(num_chunks, 1))
-                    enc = None  # the payload may be a zero-copy view over `mm`
+                    for index, offset, n, enc in results:
+                        with metrics.timed(Stage.FILE_IO, len(enc.payload)):
+                            out.write(enc.payload)
+                        meta = ct.ChunkMeta(
+                            index, offset, n, compressed_offset, len(enc.payload),
+                            enc.sha256, enc.code_lengths, enc.gap_bits,
+                        )
+                        compressed_offset += len(enc.payload)
+                        done.append(meta)
+                        _append_partial_chunk(partial_fp, meta)
+                        if progress is not None:
+                            progress(len(done) / max(num_chunks, 1))
+                    results = None  # payloads may be zero-copy views over `mm`
 
                 # global checksum = sha256 over per-chunk digests in order
                 # (reference parity: CpuCompressionService.java:101-126)
@@ -355,31 +404,43 @@ class ChunkedPipeline:
             out.truncate(header.original_file_size)
             out_fd = out.fileno()
 
-            def job(c: ct.ChunkMeta) -> None:
-                with metrics.timed(Stage.FILE_IO, c.compressed_size):
-                    payload = os.pread(
-                        in_fd, c.compressed_size, data_start + c.compressed_offset
-                    )
-                if len(payload) != c.compressed_size:
-                    raise IOError(f"short read on chunk {c.index}")
-                data = self.codec.decode_chunk(payload, c, header, metrics)
-                if data.size != c.original_size:
-                    raise IOError(f"size mismatch in chunk {c.index}")
-                with metrics.timed(Stage.CHECKSUM_VERIFY, data.size):
-                    digest = compute_sha256(data)  # buffer protocol, no copy
-                    if digest != c.sha256:
-                        raise IOError(
-                            f"Checksum mismatch in chunk {c.index}: "
-                            f"expected {c.sha256.hex()}, got {digest.hex()} "
-                            f"(chunk {c.original_size} B, compressed {c.compressed_size} B)"
+            def job(group: List[ct.ChunkMeta]):
+                payloads = []
+                for c in group:
+                    with metrics.timed(Stage.FILE_IO, c.compressed_size):
+                        payload = os.pread(
+                            in_fd, c.compressed_size, data_start + c.compressed_offset
                         )
-                with metrics.timed(Stage.FILE_IO, data.size):
-                    os.pwrite(out_fd, data, c.original_offset)
+                    if len(payload) != c.compressed_size:
+                        raise IOError(f"short read on chunk {c.index}")
+                    payloads.append(payload)
+                datas = self.codec.decode_chunk_batch(payloads, group, header, metrics)
+                for c, data in zip(group, datas):
+                    if data.size != c.original_size:
+                        raise IOError(f"size mismatch in chunk {c.index}")
+                    with metrics.timed(Stage.CHECKSUM_VERIFY, data.size):
+                        digest = compute_sha256(data)  # buffer protocol, no copy
+                        if digest != c.sha256:
+                            raise IOError(
+                                f"Checksum mismatch in chunk {c.index}: "
+                                f"expected {c.sha256.hex()}, got {digest.hex()} "
+                                f"(chunk {c.original_size} B, compressed {c.compressed_size} B)"
+                            )
+                    with metrics.timed(Stage.FILE_IO, data.size):
+                        os.pwrite(out_fd, data, c.original_offset)
+                return len(group)
 
-            futures = [self._executor.submit(job, c) for c in header.chunks]
+            # group consecutive chunks into codec-sized batches (size 1 for
+            # host codecs — identical to the per-chunk pipeline); jobs stay
+            # fully parallel and barrier-free either way
+            bs = max(1, getattr(self.codec, "batch_chunks", 1))
+            groups = [
+                list(header.chunks[i : i + bs])
+                for i in range(0, len(header.chunks), bs)
+            ]
+            futures = [self._executor.submit(job, g) for g in groups]
             for fut in futures:
-                fut.result()
-                completed += 1
+                completed += fut.result()
                 if progress is not None:
                     progress(completed / max(num_chunks, 1))
         return metrics

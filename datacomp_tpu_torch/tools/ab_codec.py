@@ -34,6 +34,10 @@ At ``size_mb`` MiB (16 by default) a turn times
   (``tools.SHORT_PER_INPUT``), so that the host's replays keep ahead of the
   device.
 
+Beside each device time of K1, K2, K3 and K4, kernel ``"<kernel> call"``
+holds the same calls' time by :func:`..tools.cuda_ms`: CUDA events around
+back-to-back calls, so the wrappers' host work when it outlasts the device's.
+
 One JSON line a side, kernel and case: ``{"side", "kernel", "case", "ms",
 "exact"}`` with the mean of the side's two turns.  It exits 1 when a side is
 not exact, and needs a CUDA device.
@@ -125,6 +129,8 @@ def measure(size_mb: int) -> list:
             exact = np.array_equal(fn(x, n).cpu().numpy(), want)
             row(kernel, case.format(kind),
                 timers.graph_ms(lambda t, fn=fn: fn(t, n), xs, REPS), exact)
+        row("histogram call", kind, timers.cuda_ms(lambda t: ops.histogram(t, n), xs, REPS),
+            True)
         del x, xs
     for kind in CODEC_KINDS:
         data = chunks[kind]
@@ -141,22 +147,30 @@ def measure(size_mb: int) -> list:
         gaps = rg[:nsub].contiguous()
         tables = ops.decode_tables_to_torch(*ops.build_decode_tables(lengths), "cuda")
         kd = ops.decode(words, gaps, *tables, SUBBLOCK, n)
-        row("encode", kind,
-            timers.graph_ms(lambda t: ops.encode(t, n, lt, ct, out_words, SUBBLOCK),
-                            timers.copies(x), REPS),
+
+        def enc(t, lt=lt, ct=ct):
+            return ops.encode(t, n, lt, ct, out_words, SUBBLOCK)
+
+        def dec(w, g, tables=tables):
+            return ops.decode(w, g, *tables, SUBBLOCK, n)
+
+        xs, wgs = timers.copies(x), timers.copies(words, gaps)
+        row("encode", kind, timers.graph_ms(enc, xs, REPS),
             int(ktb) == tb and torch.equal(kw[:live].cpu(), rw[:live].cpu())
             and torch.equal(kg.cpu(), rg.cpu()))
-        row("decode", kind,
-            timers.graph_ms(lambda w, g: ops.decode(w, g, *tables, SUBBLOCK, n),
-                            timers.copies(words, gaps), REPS),
+        row("encode call", kind, timers.cuda_ms(enc, xs, REPS), True)
+        row("decode", kind, timers.graph_ms(dec, wgs, REPS),
             np.array_equal(kd.cpu().numpy(), data))
-        del x, kw, rw, words
+        row("decode call", kind, timers.cuda_ms(dec, wgs, REPS), True)
+        del x, xs, wgs, kw, rw, words
     for name, hist in codebook_cases(chunks).items():
         h = torch.from_numpy(hist).cuda()
         kl, kc = ops.codebook(h)
         rl, rc = ops.codebook_reference(h)
         row("codebook", name, short_ms(ops.codebook, h),
             torch.equal(kl.cpu(), rl.cpu()) and torch.equal(kc.cpu(), rc.cpu()))
+        row("codebook call", name,
+            timers.cuda_ms(ops.codebook, timers.copies(h), REPS * timers.SHORT_PER_INPUT), True)
     row("launch floor", "zero_",
         short_ms(lambda t: t.zero_(), torch.zeros(256, dtype=torch.int32, device="cuda")), True)
     return rows

@@ -455,3 +455,130 @@ def test_device_codebook_mode_16mib_round_trip(cuda, tmp_path):
     hist = np.bincount(np.frombuffer(data, np.uint8), minlength=256).astype(np.int32)
     want, _ = ops.codebook_reference(torch.from_numpy(hist))
     assert np.array_equal(header.chunks[0].code_lengths, want.numpy())
+
+
+_BATCH_KINDS = ("text", "skewed", "compressible", "zeros", "random")
+
+
+def _batch_rows(rows: int, n: int = 1 << 16):
+    """``rows`` chunks of ``n`` bytes (the kinds in turn) with ragged valid
+    lengths: n, n - 12345, 17, 0, then 1, 15, 16, and n again."""
+    edges = (n, n - 12_345, 17, 0, 1, 15, 16)
+    data = np.stack([np.frombuffer(generate_bytes(_BATCH_KINDS[b % 5], n, seed=b), np.uint8)
+                     for b in range(rows)])
+    return data, [edges[b % len(edges)] for b in range(rows)]
+
+
+@pytest.mark.parametrize("rows", [1, 2, 3, 4, 16])
+def test_batched_kernels_match_unbatched_and_plain(cuda, rows):
+    """K1 → K4, K2 (host codebooks, capped at 16 bits) and K3 through their
+    batched entry points equal the unbatched kernels row by row and the
+    plain batched versions, and the decode returns each row's input."""
+    data, valid = _batch_rows(rows)
+    n, S = data.shape[1], 512
+    x = torch.from_numpy(data).to(cuda)
+    hist = ops.histogram_batch(x, valid)
+    assert _same(hist, ops.histogram_batch_reference(x, valid))
+    lens, codes = ops.codebook_batch(hist)
+    rl, rc = ops.codebook_batch_reference(hist)
+    assert _same(lens, rl) and _same(codes, rc)
+    for b in range(rows):
+        assert np.array_equal(hist[b].cpu().numpy(), np.bincount(data[b, : valid[b]], minlength=256))
+        assert _same(hist[b], ops.histogram(x[b], valid[b]))
+        kl, kc = ops.codebook(hist[b].contiguous())
+        assert _same(kl, lens[b]) and _same(kc, codes[b])
+
+    books = [build_codebook(np.bincount(data[b, : valid[b]], minlength=256), mode="fast",
+                            max_len=16) for b in range(rows)]
+    lt = torch.from_numpy(np.stack([bk[0] for bk in books]).astype(np.int32)).to(cuda)
+    ct = torch.from_numpy(np.stack([bk[1] for bk in books]).astype(np.uint32)).to(cuda)
+    out_words = (9 * n + 31) // 32 + 2
+    words, totals, gaps = ops.encode_batch(x, valid, lt, ct, out_words, S)
+    rw, rt, rg = ops.encode_batch_reference(x, valid, lt, ct, out_words, S)
+    assert _same(words, rw) and _same(totals, rt) and _same(gaps, rg)
+    streams, gap_rows, tables = [], [], []
+    for b in range(rows):
+        kw, ktb, kg = ops.encode(x[b], valid[b], lt[b], ct[b], out_words, S)
+        assert _same(kw, words[b]) and int(ktb) == int(totals[b]) and _same(kg, gaps[b])
+        tb = int(totals[b])
+        payload = ops.words_to_bytes(words[b, : (tb + 31) // 32].cpu().numpy(), tb)
+        streams.append(ops.payload_to_words(payload))
+        gap_rows.append(gaps[b, : -(-valid[b] // S)].cpu().numpy())
+        tables.append(ops.build_decode_tables(books[b][0]))
+
+    word_off = np.cumsum([0] + [w.size for w in streams]).tolist()
+    gap_off = np.cumsum([0] + [g.size for g in gap_rows]).tolist()
+    w = torch.from_numpy(np.concatenate(streams)).to(cuda)
+    g = torch.from_numpy(np.concatenate(gap_rows).astype(np.uint32)).to(cuda)
+    lim, adj, sym = (torch.from_numpy(np.stack([t[k] for t in tables])).to(cuda)
+                     for k in range(3))
+    stats = torch.zeros(2, dtype=torch.int64, device=cuda)
+    out = ops.decode_batch(w, word_off, g, gap_off, lim, adj, sym, S, valid, stats)
+    want = np.concatenate([data[b, : valid[b]] for b in range(rows)])
+    assert np.array_equal(out.cpu().numpy(), want)
+    assert _same(out, ops.decode_batch_reference(w, word_off, g, gap_off, lim, adj, sym, S,
+                                                 valid))
+    assert int(stats[0]) == gap_off[-1]  # every sub-block of every row
+    at = 0
+    for b in range(rows):
+        one = ops.decode(w[word_off[b] : word_off[b + 1]], g[gap_off[b] : gap_off[b + 1]],
+                         lim[b], adj[b], sym[b], S, valid[b])
+        assert _same(one, out[at : at + valid[b]])
+        at += valid[b]
+
+
+def test_batched_decode_keeps_a_short_row_to_its_own_words(cuda):
+    """A row whose stream is cut short decodes as it does alone (zeros past
+    its end), not from the next row's words."""
+    data, _ = _batch_rows(2, 1 << 14)
+    S = 256
+    streams, gap_rows, tables = [], [], []
+    for row in data:
+        lengths, codes = build_codebook(np.bincount(row, minlength=256), mode="fast",
+                                        max_len=16)
+        x = torch.from_numpy(row.copy()).to(cuda)
+        kw, ktb, kg = ops.encode(x, row.size, *ops.codebook_to_torch(lengths, codes, cuda),
+                                 row.size, S)
+        tb = int(ktb)
+        streams.append(ops.payload_to_words(ops.words_to_bytes(kw[: (tb + 31) // 32].cpu().numpy(), tb)))
+        gap_rows.append(kg.cpu().numpy())
+        tables.append(ops.build_decode_tables(lengths))
+    streams[0] = streams[0][: streams[0].size // 2]  # row 0 loses half its words
+    word_off = [0, streams[0].size, streams[0].size + streams[1].size]
+    w = torch.from_numpy(np.concatenate(streams)).to(cuda)
+    g = torch.from_numpy(np.concatenate(gap_rows)).to(cuda)
+    lim, adj, sym = (torch.from_numpy(np.stack([t[k] for t in tables])).to(cuda)
+                     for k in range(3))
+    n = data.shape[1]
+    out = ops.decode_batch(w, word_off, g, [0, n // S, 2 * n // S], lim, adj, sym, S, [n, n])
+    alone = ops.decode(w[: word_off[1]], g[: n // S], lim[0], adj[0], sym[0], S, n)
+    assert _same(out[:n], alone)
+    assert np.array_equal(out[n:].cpu().numpy(), data[1])
+
+
+@pytest.mark.parametrize("version,mode", [(1, "java"), (2, "fast"), (2, "device"), (1, "device")])
+def test_batched_service_matches_unbatched(cuda, tmp_path, version, mode):
+    """Six 1 MiB chunks (a group of four, then two): the ``.dcz`` at
+    ``batch_chunks`` 4 equals the one at 1, and each batched kernel launched
+    once a device group."""
+    data = generate_bytes("text", 5 * (1 << 20) + 321)
+    src = tmp_path / "in.bin"
+    src.write_bytes(data)
+    comp = {"chunk_size_mb": 1, "format_version": version, "codebook_mode": mode}
+    outs = {}
+    for bc in (1, 4):
+        cfg = datacomp_tpu_torch.config.load_config(compression=comp,
+                                                    device={"batch_chunks": bc})
+        ops.reset_counters()
+        with GpuCompressionService(cfg, device="cuda") as svc:
+            svc.compress(str(src), str(tmp_path / f"{bc}.dcz"))
+            svc.decompress(str(tmp_path / f"{bc}.dcz"), str(tmp_path / f"{bc}.out"))
+        assert (tmp_path / f"{bc}.out").read_bytes() == data
+        outs[bc] = (tmp_path / f"{bc}.dcz").read_bytes()
+        launches = {k: c[0].value for k, c in ops.COUNTERS.items()}
+        assert not any(c[1].value for c in ops.COUNTERS.values())  # no plain version
+    assert outs[1] == outs[4]
+    assert launches["encode_batch"] == 2 and launches["encode"] == 0
+    device = mode == "device"
+    assert launches["histogram_batch"] == launches["codebook_batch"] == 2 * device
+    assert launches["decode_batch"] == 2 * (version == 2)

@@ -116,7 +116,7 @@ def test_host_codec_dcz_identical(source, version, mode):
 
 def test_resumed_compress_identical(tmp_path):
     """A compress cut after two chunks and resumed writes the one-shot bytes
-    (the port's pipeline dropped the JAX package's batching hooks)."""
+    (the port's pipeline copies the JAX package's, batching hooks included)."""
     data = jtestdata.generate_bytes("text", 4 << 20)
     src = tmp_path / "r.bin"
     src.write_bytes(data)
