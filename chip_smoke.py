@@ -69,6 +69,29 @@
     device members (a group with one ran the unbatched kernel), the counts
     derived from the container's raw-stored chunks and host routes, and no
     plain version ran.  Wall MB/s and ``--stages`` for both batch sizes.
+11. Several ranks (``datacomp_tpu_torch.parallel``).  11a: a process group
+    of this process alone on ``cpu:gloo,cuda:nccl`` (``file://`` store), and
+    the sharded compress step on four 16 MiB rows of the corpus (``text``
+    whole, ``skewed`` at n - 12345, ``compressible``, and a 0-length row),
+    through ``tools.sharded_step.check_step`` (which the step's multi-card
+    tool also runs): its eight outputs equal batched K1 → K4 → K2 row by row
+    and, here, the plain versions, its offsets the host's exclusive cumsum
+    of the sizes (the all-gather on NCCL), and the sharded decompress step
+    restores every row of depth at most 16; its launches, and its time by
+    events beside the batched kernels alone and the all-gather alone (the
+    step's difference from the kernels is the all-gather and the cumsum).
+    11b: the CLI's ``compress --sharded`` then ``decompress --sharded`` over
+    the corpus, fast v2 and device v2, at 1 rank (in this process: a lone
+    process is a job of one rank) and at 2 ranks (``torchrun --standalone
+    --nproc_per_node 2``, both ranks on ``cuda:0`` through
+    ``DATACOMP_DEVICE_DEVICE_INDEX=0``, so no device collective runs; the
+    two configurations' jobs at once, as each is nearly all process start): each
+    ``.dcz`` equals phase 6/7's, the corpus is restored, and the launches,
+    plain calls and host routes that rank 0 prints summed over the ranks are
+    those the container implies for each rank's stripe.  Wall MB/s of each
+    command (at 2 ranks, process starts included, the other configuration's
+    job running beside it) and the CLI's own rate,
+    ranks sharing one card.  A rank's non-zero exit fails the script.
 
 Kernel, plain and library times are taken with CUDA events after a warm-up,
 cycling through copies of the inputs that together exceed the L2 cache, so
@@ -93,7 +116,9 @@ is a JSON object of the kernels' launches, errors, times and bounds; the last
 is ``{"ok": true, "device": {...}}``.
 """
 
+import contextlib
 import filecmp
+import io
 import json
 import os
 import subprocess
@@ -112,6 +137,7 @@ TAIL = 12345  # bytes that valid_len leaves out of the histogram inputs
 HIST_KINDS = ("random", "text", "skewed", "compressible", "zeros")  # K1's inputs
 BATCH_KINDS = ("text", "skewed", "compressible", "zeros")  # the batched kernels' rows
 BATCH_VALID = (CHUNK, CHUNK - TAIL, 17, 0)  # and their valid lengths
+SHARDED_VALID = (CHUNK, CHUNK - TAIL, CHUNK, 0)  # the sharded step's rows' valid lengths
 AUTO_BATCH = 4  # batch_chunks auto on a CUDA device
 VARIANT_K = (1, 2, 3, 4, 5, 8, 64)  # K1p's stripe counts checked (3, 5, 64: uneven stripes)
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (NVIDIA data sheet)
@@ -781,13 +807,15 @@ def check_batched_kernels() -> dict:
     return res
 
 
-def expected_launches(dcz: str, device_codebook: bool, batch: int) -> tuple:
+def expected_launches(dcz: str, device_codebook: bool, batch: int, ranks: int = 1,
+                      probes: int = 2) -> tuple:
     """The launches and host decode routes a compress → decompress of ``dcz``
     at ``batch_chunks`` ``batch`` implies: each group of ``batch`` chunks
-    runs the batched kernels once when two or more of its members reach the
-    device, the unbatched kernels once when one does.  Compress: the chunks
-    not stored raw; decompress: v2 chunks of depth 1 to 16 (the rest that
-    are not raw take the host route)."""
+    (of each rank's round-robin stripe, with ``ranks`` ranks) runs the
+    batched kernels once when two or more of its members reach the device,
+    the unbatched kernels once when one does.  Compress: the chunks not
+    stored raw; decompress: v2 chunks of depth 1 to 16 (the rest that are
+    not raw take the host route).  K1 also runs once a service probe."""
     from datacomp_tpu_torch.core import read_container
     from datacomp_tpu_torch.ops import TABLE_BITS, max_code_len
 
@@ -796,8 +824,10 @@ def expected_launches(dcz: str, device_codebook: bool, batch: int) -> tuple:
     want = {name: 0 for name in ("histogram", "codebook", "encode", "decode", "histogram_batch",
                                  "codebook_batch", "encode_batch", "decode_batch")}
     routes = 0
-    for i in range(0, len(header.chunks), batch):
-        depths = [max_code_len(c.code_lengths) for c in header.chunks[i : i + batch]]
+    groups = [stripe[i : i + batch] for stripe in (header.chunks[r::ranks] for r in range(ranks))
+              for i in range(0, len(stripe), batch)]
+    for group in groups:
+        depths = [max_code_len(c.code_lengths) for c in group]
         coded = sum(1 for dep in depths if dep > 0)
         on_k3 = sum(1 for dep in depths if v2 and 0 < dep <= TABLE_BITS)
         routes += coded - on_k3
@@ -808,7 +838,7 @@ def expected_launches(dcz: str, device_codebook: bool, batch: int) -> tuple:
                     want[f"{name}_batch"] += 1
                 elif members == 1:
                     want[name] += 1
-    want["histogram"] += 2  # the availability probe of each CLI command's service
+    want["histogram"] += probes  # by default one for each CLI command's service
     return want, routes
 
 
@@ -830,6 +860,202 @@ def run_batched(label: str, compress_args: list, d: str, src: str, leg: str,
           flush=True)
     if got != want or res["decode_routes"] != routes:
         fail(f"{label}: batched launch counts or routes differ from those the container implies")
+    return res
+
+
+def check_sharded_step(d: str, corpus: np.ndarray) -> dict:
+    """Phase 11a: the sharded compress and decompress steps at world size 1,
+    the all-gather on NCCL.  ``tools.sharded_step.check_step`` holds the
+    step to the batched kernels and the host's cumsum and times it; here it
+    is also held to the plain versions, and the decompress step restores
+    the rows."""
+    import torch.distributed as dist
+
+    from datacomp_tpu_torch import parallel
+    from datacomp_tpu_torch.ops import (
+        COUNTERS, TABLE_BITS, codebook_batch_reference, encode_batch_reference,
+        histogram_batch_reference, max_code_len, payload_to_words, reset_counters,
+        words_to_bytes,
+    )
+    from datacomp_tpu_torch.tools.sharded_step import check_step
+
+    # the corpus's chunks: text 0-1, compressible 2-3, skewed 4-5, random 6-7
+    rows = np.stack([corpus[0:CHUNK], corpus[4 * CHUNK : 5 * CHUNK],
+                     corpus[2 * CHUNK : 3 * CHUNK], np.zeros(CHUNK, np.uint8)])
+    valid = list(SHARDED_VALID)
+    x = torch.from_numpy(rows).cuda()
+    out_words = (9 * CHUNK + 31) // 32 + 2
+    dist.init_process_group("cpu:gloo,cuda:nccl", init_method=f"file://{d}/pg-store",
+                            world_size=1, rank=0)
+    try:
+        mesh = parallel.make_mesh(1, device="cuda:0")
+        got, res = check_step(mesh, x, valid, SUBBLOCK)
+        if not res["ok"]:
+            fail(f"sharded step: {res}")
+        ph = histogram_batch_reference(x, valid)
+        pl, pc = codebook_batch_reference(ph)
+        plain = (ph, pl, pc, *encode_batch_reference(x, valid, pl, pc, out_words, SUBBLOCK))
+        names = ("hists", "lengths", "codes", "words", "total_bits", "gaps")
+        err = 0
+        for name, mine, p in zip(names, got, plain):
+            if not torch.equal(mine.cpu(), p.cpu()):
+                fail(f"sharded step: {name} differ from the plain versions")
+            err = max(err, max_abs_err(mine, p))
+        lengths = got[1].cpu().numpy()
+        depths = [max_code_len(row) for row in lengths]
+        keep = [b for b, dep in enumerate(depths) if 0 < dep <= TABLE_BITS]
+        words, totals, gaps = (t.cpu().numpy() for t in got[3:6])
+        reset_counters()
+        restored = parallel.sharded_decompress_arrays(
+            mesh, [payload_to_words(words_to_bytes(words[b], int(totals[b]))) for b in keep],
+            gaps[keep], lengths[keep], SUBBLOCK, [valid[b] for b in keep])
+        for b, row in zip(keep, restored):
+            if not np.array_equal(row.cpu().numpy(), rows[b, : valid[b]]):
+                fail(f"sharded decompress step: row {b} is not restored")
+        res["launches"]["decode_batch"] = COUNTERS["decode_batch"][0].value
+        res.update(rows=len(valid), valid=valid, depths=depths, max_abs_err=err,
+                   restored_rows=keep)
+    finally:
+        dist.destroy_process_group()
+    print(f"sharded step, world size 1 on NCCL, {len(valid)} rows of {CHUNK >> 20} MiB (text, "
+          f"skewed, compressible, empty; valid_len {valid}): equal to the batched kernels and "
+          f"the plain versions, offsets the host's cumsum; launches {res['launches']}; rows "
+          f"{keep} restored by the decompress step (depths {depths}); step {res['step_ms']} ms "
+          f"against the batched K1 → K4 → K2 alone {res['batched_kernels_ms']} ms and the "
+          f"all-gather alone {res['all_gather_ms']} ms (events)",
+          flush=True)
+    return res
+
+
+def cli_in_process(argv: list) -> tuple:
+    """The port's CLI with ``--sharded --stages`` in this process, a job of one
+    rank on ``cuda:0`` (a lone process is one, and runs the code a 1-rank
+    ``torchrun`` would): (seconds, its output)."""
+    from datacomp_tpu_torch import cli
+
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main([*argv, "--sharded", "--stages"])
+    seconds = time.perf_counter() - t0
+    print(buf.getvalue(), end="", flush=True)
+    if rc != 0:
+        fail(f"{argv[0]} --sharded at 1 rank exited {rc}:\n{buf.getvalue()[-2000:]}")
+    return seconds, buf.getvalue()
+
+
+def torchrun_jobs(d: str, ranks: int, argvs: list) -> list:
+    """``torchrun --standalone --nproc_per_node ranks`` of the port's CLI with
+    ``--sharded --stages``, one job for each of ``argvs``, all started at
+    once (a job is nearly all process start), every rank on ``cuda:0``:
+    [(seconds from its start to its end, rank 0's output)].  A job past 300
+    s, or one that exits non-zero, fails the script; every job is stopped
+    first."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, DATACOMP_DEVICE_DEVICE_INDEX="0",
+               PYTHONPATH=os.pathsep.join(filter(None, [root, os.environ.get("PYTHONPATH")])))
+    jobs, ends = [], {}
+    try:
+        for i, argv in enumerate(argvs):
+            logs = [open(os.path.join(d, f"torchrun{i}.{ext}"), "w+") for ext in ("out", "err")]
+            cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+                   "--nproc_per_node", str(ranks), "-m", "datacomp_tpu_torch.cli", *argv,
+                   "--sharded", "--stages"]
+            jobs.append((time.perf_counter(), subprocess.Popen(
+                cmd, cwd=root, env=env, stdout=logs[0], stderr=logs[1]), logs))
+        while len(ends) < len(jobs):
+            for i, (t0, proc, _) in enumerate(jobs):
+                if i not in ends and proc.poll() is not None:
+                    ends[i] = time.perf_counter() - t0
+            if time.perf_counter() - jobs[0][0] > 300:
+                break
+            time.sleep(0.02)
+    finally:
+        for _, proc, _ in jobs:
+            if proc.poll() is None:
+                proc.kill()
+            proc.wait()
+    res = []
+    for i, (argv, (_, proc, logs)) in enumerate(zip(argvs, jobs)):
+        for f in logs:
+            f.seek(0)
+        out, err = (f.read() for f in logs)
+        for f in logs:
+            f.close()
+        if i not in ends or proc.returncode != 0:
+            fail(f"{argv[0]} --sharded at {ranks} ranks exited {proc.returncode} or ran past "
+                 f"300 s:\n{out[-2000:]}\n{err[-4000:]}")
+        res.append((ends[i], out))
+    return res
+
+
+def _cli_numbers(out: str) -> tuple:
+    """(the CLI's own MB/s, the counts rank 0 printed) from its output."""
+    mbps = float(out.split("Throughput:")[1].split()[0])
+    return mbps, json.loads(out.split("counts: ")[1].splitlines()[0])
+
+
+def sharded_dcz(d: str, leg: str, ranks: int) -> tuple:
+    return os.path.join(d, f"{leg}-r{ranks}.dcz"), os.path.join(d, f"{leg}-r{ranks}.out")
+
+
+def check_sharded_cli(d: str, src: str, label: str, compress_args: list, leg: str,
+                      ranks: int, compressed: tuple, decompressed: tuple, at_once: bool) -> dict:
+    """Phase 11b: one configuration's ``compress --sharded`` and ``decompress
+    --sharded`` at ``ranks`` ranks, each a (seconds, rank 0's output), held
+    to phase 6/7's ``{leg}.dcz``, the corpus, and the launches and routes
+    its container implies for each rank's stripe."""
+    from datacomp_tpu_torch.ops import COUNTERS
+
+    dcz, out = sharded_dcz(d, leg, ranks)
+    size = os.path.getsize(src)
+    (c_s, c_out), (d_s, d_out) = compressed, decompressed
+    if not filecmp.cmp(dcz, os.path.join(d, f"{leg}.dcz"), shallow=False):
+        fail(f"{label}, {ranks} ranks: the .dcz differs from the single-process file")
+    if not filecmp.cmp(src, out, shallow=False):
+        fail(f"{label}, {ranks} ranks: decompress did not restore the input")
+    (c_mbps, c_counts), (d_mbps, d_counts) = _cli_numbers(c_out), _cli_numbers(d_out)
+    got = {name: c_counts["launches"][name] + d_counts["launches"][name] for name in COUNTERS}
+    want, routes = expected_launches(dcz, "device" in compress_args, AUTO_BATCH, ranks, probes=0)
+    plain = sum(c_counts["plain"].values()) + sum(d_counts["plain"].values())
+    if ({name: got[name] for name in want} != want or d_counts["host_decode_routes"] != routes
+            or plain or c_counts["host_encode_routes"]):
+        fail(f"{label}, {ranks} ranks: launches {got}, routes {d_counts['host_decode_routes']} "
+             f"and plain calls {plain}; the container implies {want} and {routes} routes")
+    res = {"ranks": ranks, "compress_mbps": size / 1e6 / c_s, "decompress_mbps": size / 1e6 / d_s,
+           "cli_compress_mbps": c_mbps, "cli_decompress_mbps": d_mbps,
+           "launches": {name: v for name, v in got.items() if v},
+           "host_decode_routes": d_counts["host_decode_routes"], "jobs_at_once": at_once}
+    how = ("torchrun, process starts included, both configurations' jobs at once" if at_once
+           else "in this process")
+    print(f"{label}, --sharded at {ranks} rank(s) sharing one card: .dcz byte-identical to "
+          f"the single-process file, corpus restored; wall ({how}) compress "
+          f"{res['compress_mbps']} MB/s, decompress {res['decompress_mbps']} MB/s; the CLI's "
+          f"own {c_mbps} / {d_mbps} MB/s; launches {res['launches']} as the stripes imply; host "
+          f"decode routes {routes}", flush=True)
+    return res
+
+
+def run_sharded_cli(d: str, src: str) -> dict:
+    """Phase 11b: fast v2 and device v2 through ``--sharded``, at 1 rank in
+    this process (one configuration after the other), then at 2 ranks under
+    ``torchrun`` (both configurations' compress jobs at once, then both
+    decompress jobs)."""
+    legs = (("fast", "fast path (v2, host codebook)", ["--format", "2", "--codebook-mode", "fast"]),
+            ("dev2", "device codebook, v2", ["--format", "2", "--codebook-mode", "device"]))
+    res = {}
+    for leg, label, args in legs:
+        dcz, out = sharded_dcz(d, leg, 1)
+        compressed = cli_in_process(["compress", src, dcz, "16", *args, "--no-verify"])
+        decompressed = cli_in_process(["decompress", dcz, out, "16"])
+        res[leg] = [check_sharded_cli(d, src, label, args, leg, 1, compressed, decompressed,
+                                      at_once=False)]
+    compressed = torchrun_jobs(d, 2, [["compress", src, sharded_dcz(d, leg, 2)[0], "16", *args,
+                                       "--no-verify"] for leg, _, args in legs])
+    decompressed = torchrun_jobs(d, 2, [["decompress", *sharded_dcz(d, leg, 2), "16"]
+                                        for leg, _, _ in legs])
+    for (leg, label, args), c, dc in zip(legs, compressed, decompressed):
+        res[leg].append(check_sharded_cli(d, src, label, args, leg, 2, c, dc, at_once=True))
     return res
 
 
@@ -874,6 +1100,9 @@ def main() -> int:
                                                      "device"], d, src, "dev2", dev2)
         run_batched("device codebook, v1", ["--format", "1", "--codebook-mode",
                                                      "device"], d, src, "dev1", dev1)
+        sharded = {"step": check_sharded_step(d, np.fromfile(src, np.uint8)),
+                   **run_sharded_cli(d, src)}
+        print("sharded: " + json.dumps(sharded), flush=True)
     jax_side = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "datacomp_tpu"))
     if jax_side:
         fail(f"jax or the JAX package was imported: {jax_side}")

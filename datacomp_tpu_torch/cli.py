@@ -6,6 +6,8 @@ arguments, progress line and report).
     python -m datacomp_tpu_torch.cli compress IN OUT.dcz --format 2 --codebook-mode device
     python -m datacomp_tpu_torch.cli decompress OUT.dcz RESTORED
     python -m datacomp_tpu_torch.cli verify OUT.dcz --deep
+    python -m torch.distributed.run --standalone --nproc_per_node 2 \
+        -m datacomp_tpu_torch.cli compress IN OUT.dcz --sharded --format 2
 
 The GPU service needs a CUDA device and raises without one.  The config's
 ``device`` section selects otherwise: ``DATACOMP_DEVICE_PLATFORM=cpu`` runs
@@ -71,16 +73,103 @@ def _report(op: str, in_path: str, out_path: str, seconds: float) -> None:
     print(f"  Throughput: {mbps:.2f} MB/s")
 
 
-def _make_service(args):
+def _config(args):
     comp = {"chunk_size_mb": args.chunk_mb}
     if getattr(args, "format", None):
         comp["format_version"] = args.format
     if getattr(args, "codebook_mode", None):
         comp["codebook_mode"] = args.codebook_mode
-    return create_compression_service(load_config(compression=comp))
+    return load_config(compression=comp)
+
+
+def _make_service(args):
+    return create_compression_service(_config(args))
+
+
+def _rank_counts() -> dict:
+    """This process's kernel launches, plain-version calls and host routes
+    so far."""
+    from .ops import COUNTERS
+    from .services import gpu_service
+
+    return {"launches": {name: k.value for name, (k, _) in COUNTERS.items()},
+            "plain": {name: r.value for name, (_, r) in COUNTERS.items()},
+            "host_encode_routes": gpu_service.host_encode_routes.value,
+            "host_decode_routes": gpu_service.host_decode_routes.value}
+
+
+def _add(a: dict, b: dict, sign: int = 1) -> dict:
+    """``a + sign * b``, key by key, nested dicts too."""
+    return {k: _add(v, b[k], sign) if isinstance(v, dict) else v + sign * b[k]
+            for k, v in a.items()}
+
+
+def _run_sharded(args, compressing: bool) -> int:
+    """``--sharded``: one rank a process, as ``torchrun`` starts them (a lone
+    process is a job of one rank).  The ranks share the file's chunks
+    round-robin (``parallel.compress_multihost`` /
+    ``decompress_multihost``); the config selects the backend as the
+    unsharded verbs do.  Rank 0 prints the report; with ``--stages`` it
+    prints every rank's stage breakdown and the kernel launches, plain
+    calls and host routes summed over the ranks."""
+    import functools
+    import json
+
+    import torch.distributed as dist
+
+    from .models import StageMetrics
+    from .parallel import (
+        compress_multihost, decompress_multihost, initialize_distributed, make_mesh, rank_device,
+    )
+    from .services import CpuCompressionService
+
+    cfg = _config(args)
+    device = rank_device(cfg)
+    owned = not dist.is_initialized()
+    initialize_distributed(device=device)
+    try:
+        mesh = make_mesh(device=device)
+        verb = "compress" if compressing else "decompress"
+        if mesh.size == 1:
+            print(f"note: one local device — sharded {verb} degrades to the "
+                  "batched single-device path")
+        metrics = StageMetrics()
+        label = "Compressing" if compressing else "Decompressing"
+        progress = _progress_printer(label, _input_size(args.input)) if mesh.rank == 0 else None
+        run = compress_multihost if compressing else decompress_multihost
+        before = _rank_counts()
+        t0 = time.perf_counter()
+        backend = "cpu" if cfg.device.force_cpu else "gpu"
+        run(args.input, args.output, cfg, backend=backend, mesh=mesh, progress=progress,
+            metrics=metrics)
+        seconds = time.perf_counter() - t0
+        ranks = [{"stages": metrics.summary(), "counts": _add(_rank_counts(), before, -1)}]
+        if args.stages and mesh.size > 1:
+            mine, ranks = ranks[0], [None] * mesh.size
+            dist.all_gather_object(ranks, mine, group=mesh.host_group)
+        if mesh.rank != 0:
+            return 0
+        _report("Compression" if compressing else "Decompression", args.input, args.output,
+                seconds)
+        if compressing and cfg.output.verify_after_compress and not args.no_verify:
+            with CpuCompressionService(cfg) as svc:
+                ok = svc.verify_integrity(args.output)
+            print(f"  Verify:     {'OK' if ok else 'FAILED'}")
+            if not ok:
+                return 1
+        if args.stages:
+            for r, got in enumerate(ranks):
+                print(f"rank {r} of {mesh.size}:\n{got['stages']}")
+            print("counts: " + json.dumps(functools.reduce(_add, [got["counts"] for got in ranks])))
+        return 0
+    finally:
+        if owned and dist.is_initialized():
+            dist.destroy_process_group()
 
 
 def cmd_compress(args) -> int:
+    if args.sharded:
+        return _run_sharded(args, compressing=True)
     svc = _make_service(args)
     try:
         t0 = time.perf_counter()
@@ -100,6 +189,8 @@ def cmd_compress(args) -> int:
 
 
 def cmd_decompress(args) -> int:
+    if args.sharded:
+        return _run_sharded(args, compressing=False)
     svc = _make_service(args)
     try:
         t0 = time.perf_counter()
@@ -135,6 +226,9 @@ def build_parser() -> argparse.ArgumentParser:
         description="datacomp-tpu on PyTorch/CUDA: chunked canonical-Huffman compression",
     )
     sub = p.add_subparsers(dest="command", required=True)
+    sharded_help = ("share the file's chunks among the ranks of a torchrun job, one "
+                    "GPU a rank (cuda:LOCAL_RANK unless device.device_index is set); "
+                    "a lone process is a job of one rank")
 
     def common(sp, output=True):
         sp.add_argument("input")
@@ -156,10 +250,12 @@ def build_parser() -> argparse.ArgumentParser:
                          "and encode all on the GPU: optimal codes with no length "
                          "cap (the config's max_code_len is ignored), so v2 files "
                          "differ from the host codec's capped ones")
+    sp.add_argument("--sharded", action="store_true", help=sharded_help)
     sp.set_defaults(func=cmd_compress)
 
     sp = sub.add_parser("decompress", aliases=["d"], help="decompress a .dcz file")
     common(sp)
+    sp.add_argument("--sharded", action="store_true", help=sharded_help)
     sp.set_defaults(func=cmd_decompress)
 
     sp = sub.add_parser("verify", help="verify container integrity")

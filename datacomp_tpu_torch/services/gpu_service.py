@@ -78,7 +78,15 @@ host_decode_routes = LaunchCounter()  # v1 container or codes deeper than 16 bit
 def pick_device(platform: str = "any", index: int = -1) -> torch.device:
     """The compute device: ``platform="cpu"`` selects the CPU (the kernels'
     plain versions); anything else a CUDA device, and raises when there is
-    none."""
+    none.
+
+    ``index`` -1 is auto: ``cuda:LOCAL_RANK`` in a process that ``torchrun``
+    started (one process a GPU), else ``cuda:0``.  An explicit index always
+    wins (``device.device_index``, also ``DATACOMP_DEVICE_DEVICE_INDEX``):
+    that is how several ranks share one card on purpose.  An index, explicit
+    or from ``LOCAL_RANK``, that names no device raises: unlike the JAX
+    service, which takes the first device instead, a misconfigured rank does
+    not quietly share another rank's card."""
     if platform == "cpu":
         return torch.device("cpu")
     if not torch.cuda.is_available():
@@ -88,7 +96,16 @@ def pick_device(platform: str = "any", index: int = -1) -> torch.device:
             "with device.platform='cpu'"
         )
     count = torch.cuda.device_count()
-    return torch.device("cuda", index if 0 <= index < count else 0)
+    source = "device.device_index"
+    if index == -1:
+        source = "LOCAL_RANK"
+        index = int(os.environ.get("LOCAL_RANK", "0"))
+    if not 0 <= index < count:
+        raise RuntimeError(
+            f"{source} {index} names no CUDA device: this process sees {count}; "
+            "set device.device_index (DATACOMP_DEVICE_DEVICE_INDEX) to share one"
+        )
+    return torch.device("cuda", index)
 
 
 def get_available_devices() -> list:

@@ -1,6 +1,7 @@
 """Measurement tools of the port: the A/B harnesses of K1's variants
 (:mod:`.ab_histogram`) and of K1-K4 against another checkout
-(:mod:`.ab_codec`), and the timers that they and ``chip_smoke.py`` share:
+(:mod:`.ab_codec`), the sharded step across ranks (:mod:`.sharded_step`),
+and the timers that they and ``chip_smoke.py`` share:
 :func:`cuda_ms` (CUDA events around back-to-back calls, so a call whose host
 work outlasts its device work is timed by its host work) and
 :func:`graph_ms` (the same calls replayed from CUDA graphs: the device time

@@ -15,7 +15,10 @@ fixed-length code (no sync round), on the periodic ``compressible`` text, at
 sub-blocks of 32 and 65 536 symbols (the second beyond the per-warp
 buffers), with a 1-symbol last sub-block, and on random streams (no fault,
 ``n_out`` bytes back); K2's single pass with tiles that start and end
-mid-word and ``out_words`` cut inside a tile.
+mid-word and ``out_words`` cut inside a tile.  The sharded compress step of
+``datacomp_tpu_torch.parallel`` at world size 1, its all-gather on NCCL,
+against the batched kernels and the plain versions (1, 4, 16 and 17 rows),
+and ``pick_device`` with ``LOCAL_RANK`` past the device count.
 
 Marked ``gpu``: every test skips without a CUDA device.  On a machine with
 one (and no jax, which ``tests/conftest.py`` imports):
@@ -582,3 +585,81 @@ def test_batched_service_matches_unbatched(cuda, tmp_path, version, mode):
     device = mode == "device"
     assert launches["histogram_batch"] == launches["codebook_batch"] == 2 * device
     assert launches["decode_batch"] == 2 * (version == 2)
+
+
+@pytest.fixture(scope="module")
+def nccl_mesh(tmp_path_factory):
+    """A process group of this process alone on ``cpu:gloo,cuda:nccl`` (the
+    backend a rank on a CUDA device gets), and its mesh; destroyed after the
+    module's tests."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import torch.distributed as dist
+
+    from datacomp_tpu_torch import parallel
+
+    store = tmp_path_factory.mktemp("nccl") / "store"
+    dist.init_process_group("cpu:gloo,cuda:nccl", init_method=f"file://{store}",
+                            world_size=1, rank=0)
+    try:
+        yield parallel.make_mesh(1, device="cuda:0")
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("rows", [1, 4, 16, 17])
+def test_sharded_step_on_nccl_matches_batched_kernels_and_plain(nccl_mesh, rows):
+    """The world-size-1 sharded compress step (its all-gather on NCCL) equals
+    K1 → K4 → K2 through their batched entry points and the plain versions
+    row by row, its offsets the host's exclusive cumsum of the sizes; 17
+    rows run each kernel in two launches.  The decompress step restores
+    every row."""
+    from datacomp_tpu_torch import parallel
+
+    data, valid = _batch_rows(rows)
+    n, S = data.shape[1], 512
+    x = torch.from_numpy(data).cuda()
+    step = parallel.make_sharded_compress_step(nccl_mesh, n, S)
+    ops.reset_counters()
+    got = step(x, valid, rows)
+    launches = {k: c[0].value for k, c in ops.COUNTERS.items()}
+    spans = -(-rows // ops.MAX_ROWS)
+    assert all(launches[f"{k}_batch"] == spans for k in ("histogram", "codebook", "encode"))
+    assert not any(c[1].value for c in ops.COUNTERS.values())  # no plain version
+    hist, lens, codes, words, totals, gaps, comp_bytes, offsets = got
+    out_words = (9 * n + 31) // 32 + 2
+    for s in range(0, rows, ops.MAX_ROWS):
+        r, v = slice(s, s + ops.MAX_ROWS), valid[s : s + ops.MAX_ROWS]
+        kh = ops.histogram_batch(x[r], v)
+        kl, kc = ops.codebook_batch(kh)
+        kernel = (kh, kl, kc, *ops.encode_batch(x[r], v, kl, kc, out_words, S))
+        ph = ops.histogram_batch_reference(x[r], v)
+        pl, pc = ops.codebook_batch_reference(ph)
+        plain = (ph, pl, pc, *ops.encode_batch_reference(x[r], v, pl, pc, out_words, S))
+        for mine, k, p in zip(got[:6], kernel, plain):
+            assert _same(mine[r], k) and _same(mine[r], p)
+    sizes = (totals.cpu().numpy() + 7) // 8
+    assert comp_bytes.cpu().tolist() == sizes.tolist()
+    assert offsets.cpu().tolist() == (np.cumsum(sizes) - sizes).tolist()
+
+    lengths = lens.cpu().numpy()
+    keep = [b for b in range(rows) if 0 < ops.max_code_len(lengths[b]) <= ops.TABLE_BITS]
+    words_h, totals_h, gaps_h = words.cpu().numpy(), totals.cpu().numpy(), gaps.cpu().numpy()
+    streams = [ops.payload_to_words(ops.words_to_bytes(words_h[b], int(totals_h[b])))
+               for b in keep]
+    restored = parallel.sharded_decompress_arrays(
+        nccl_mesh, streams, gaps_h[keep], lengths[keep], S, [valid[b] for b in keep])
+    for b, row in zip(keep, restored):
+        assert np.array_equal(row.cpu().numpy(), data[b, : valid[b]])
+
+
+def test_pick_device_local_rank_past_the_count_raises(cuda, monkeypatch):
+    from datacomp_tpu_torch.services import pick_device
+
+    count = torch.cuda.device_count()
+    monkeypatch.setenv("LOCAL_RANK", str(count))
+    with pytest.raises(RuntimeError, match=f"LOCAL_RANK {count} names no CUDA device"):
+        pick_device("any", -1)
+    assert pick_device("any", 0) == torch.device("cuda", 0)  # an explicit index wins
+    monkeypatch.setenv("LOCAL_RANK", "0")
+    assert pick_device("any", -1) == torch.device("cuda", 0)
