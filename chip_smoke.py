@@ -92,6 +92,26 @@
     command (at 2 ranks, process starts included, the other configuration's
     job running beside it) and the CLI's own rate,
     ranks sharing one card.  A rank's non-zero exit fails the script.
+12. The surfaces, through the CLI's ``main`` in this process.  12a: ``gen 16
+    DIR --corpus`` (the 7-file Silesia-style corpus at a quarter of its
+    default size), then ``bench --corpus
+    DIR`` on the ``gpu`` and the ``cpu`` backend (java v1, every file
+    round-tripped): each file's compressed size equal on both, K2 launched
+    on ``gpu`` only.  12b: ``bench --size-mb 16``: a ``CPU`` and a ``GPU
+    (<card>)`` row for each operation; then the suite's
+    ``benchmark_service`` on the GPU service with ``detailed_profiling``
+    over the corpus (fast v2): the ``torch.profiler`` trace is written, and
+    its device time split into kernels, copies and fills, with the device's
+    idle share, is printed (``profiler: no device events`` when it holds
+    none).  12c: ``bench --kernels --kind text``: every row exact, each
+    row's device time printed beside phases 2-4's for the same kernel and
+    chunk, and the card's primitives.  12d: ``bench --batched``: the batched
+    K1 → K4 → K2 and K3 at B = 1, 4 and 8.  12e: phase 6's ``.dcz`` cut after
+    chunk 2 with its ``.partial`` sidecar, then ``resume --last-chunk 2`` (v2
+    ``fast`` and ``batch_chunks`` 1 from the environment): phase 6's file
+    byte for byte, K2 once a resumed chunk not stored raw.  12f:
+    ``dashboard --html`` names the card, ``config --init`` then ``config
+    --file`` reads the template back, ``stats`` runs.
 
 Kernel, plain and library times are taken with CUDA events after a warm-up,
 cycling through copies of the inputs that together exceed the L2 cache, so
@@ -103,8 +123,12 @@ launch floor 40 calls a graph on each input copy), and K2 the time of its
 wrapper's zero-fill alone, also replayed.  The launch counts of the kernels line
 come from the run of each kernel's path (phases 5-7; the batched kernels'
 from phase 10), with the counts set to 0 just before it and read just after;
-the comparison launches are not in them.  ``bound_ms`` is the larger of the bytes each kernel must move over
-3.35 TB/s and its operations over 67 T/s (the H100's non-tensor rate); K4,
+the comparison launches are not in them.  Phase 12 reads the counts of its
+own paths (the ``gpu`` corpus bench, ``resume``) the same way; it adds no
+kernel.  ``bound_ms`` is the larger of
+the bytes each kernel must move over 3.35 TB/s and its operations over 67
+T/s (the H100's non-tensor rate;
+``datacomp_tpu_torch.benchmark.kernels.bound`` and its work counts); K4,
 which neither bounds, also carries ``launch_floor_ms``.  A batched kernel's
 bytes and operations are those of this run's rows, summed.
 
@@ -133,6 +157,7 @@ CHUNK = 16 << 20  # the default chunk size, and the kernels' main-path shape
 SUBBLOCK = 4032  # the default v2 sub-block (symbols)
 K3_WARP_WORDS = 1024  # csrc/decode.cu's kWarpWords: a larger sub-block takes the direct route
 CORPUS_MB = 128  # bench.py's default corpus
+SURFACE_CORPUS_MB = 16  # phase 12a's gen --corpus size (7 files of 1-4 MB)
 TAIL = 12345  # bytes that valid_len leaves out of the histogram inputs
 HIST_KINDS = ("random", "text", "skewed", "compressible", "zeros")  # K1's inputs
 BATCH_KINDS = ("text", "skewed", "compressible", "zeros")  # the batched kernels' rows
@@ -140,29 +165,10 @@ BATCH_VALID = (CHUNK, CHUNK - TAIL, 17, 0)  # and their valid lengths
 SHARDED_VALID = (CHUNK, CHUNK - TAIL, CHUNK, 0)  # the sharded step's rows' valid lengths
 AUTO_BATCH = 4  # batch_chunks auto on a CUDA device
 VARIANT_K = (1, 2, 3, 4, 5, 8, 64)  # K1p's stripe counts checked (3, 5, 64: uneven stripes)
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (NVIDIA data sheet)
-# the H100's non-tensor float32 rate, taken as the ceiling of the integer
-# and compare instructions these kernels are made of
-OPS_PER_S = 67e12
 
 
 def fail(msg: str) -> None:
     raise SystemExit(f"chip_smoke: FAIL: {msg}")
-
-
-def card_line() -> str:
-    return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    ).stdout.strip()
-
-
-def bound(nbytes: int, ops: int) -> dict:
-    """The least time the card could take: bytes over the memory rate or
-    operations over the scalar rate, whichever is longer."""
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / OPS_PER_S
-    return {"bound_ms": max(t_bytes, t_ops) * 1e3,
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
 def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> int:
@@ -173,6 +179,7 @@ def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> int:
 def check_histogram(cfg) -> dict:
     """K1 on 16 MiB of each of ``HIST_KINDS`` with ``valid_len = n - TAIL``,
     and on the ``valid_len`` edges; the service's 1 KB probe."""
+    from datacomp_tpu_torch.benchmark.kernels import bound, histogram_work
     from datacomp_tpu_torch.ops import histogram, histogram_reference
     from datacomp_tpu_torch.services import GpuFrequencyService
     from datacomp_tpu_torch.tools import copies, cuda_ms, graph_ms
@@ -208,7 +215,7 @@ def check_histogram(cfg) -> dict:
     if not GpuFrequencyService(cfg, "cuda").is_available():
         fail("the 1 KB histogram probe failed")
     res = {"max_abs_err": err, **kinds["random"], "plain_ms": plain_ms,
-           **bound(valid + 256 * 4, valid), "library_ms": library_ms, "kinds": kinds}
+           **bound(*histogram_work([valid])), "library_ms": library_ms, "kinds": kinds}
     print("K1 histogram 16 MiB, ms (device time alone): "
           + ", ".join(f"{kind} {t['ms']} ({t['device_ms']})" for kind, t in kinds.items())
           + f"; on random plain {plain_ms} ms, torch.bincount {library_ms} ms, bound "
@@ -277,6 +284,7 @@ def dense_chunk() -> np.ndarray:
 
 
 def check_codec(kind: str) -> dict:
+    from datacomp_tpu_torch.benchmark.kernels import bound, decode_work, encode_work
     from datacomp_tpu_torch.ops import (
         _build, decode, decode_reference, encode, encode_reference,
     )
@@ -306,7 +314,7 @@ def check_codec(kind: str) -> dict:
             "plain_ms": cuda_ms(
                 lambda t: encode_reference(t, CHUNK, lt, ct, out_words, SUBBLOCK), xs, 3),
             # the chunk and tables in; the live words and the gap array out
-            **bound(CHUNK + 256 * 8 + 4 * c["live"] + 4 * nsub, CHUNK),
+            **bound(*encode_work([CHUNK], c["live"], nsub)),
             "library_ms": None,
             "zero_fill_ms": graph_ms(
                 lambda: torch.zeros(zeroed, dtype=torch.int32, device="cuda"), [()], 48),
@@ -318,7 +326,7 @@ def check_codec(kind: str) -> dict:
             "plain_ms": cuda_ms(
                 lambda w, g: decode_reference(w, g, *tables, SUBBLOCK, CHUNK), ws, 1),
             # the stream, gap array and tables in; the chunk out
-            **bound(4 * c["words"].numel() + 4 * nsub + table_bytes + CHUNK, CHUNK),
+            **bound(*decode_work(c["words"].numel(), nsub, table_bytes, CHUNK)),
             "library_ms": None,
         },
         "sync_rounds": c["sync_rounds"],
@@ -395,6 +403,7 @@ def codebook_histograms(corpus: np.ndarray) -> list:
 
 
 def check_codebook(corpus: np.ndarray) -> dict:
+    from datacomp_tpu_torch.benchmark.kernels import bound, codebook_work
     from datacomp_tpu_torch.ops import codebook, codebook_reference
     from datacomp_tpu_torch.tools import SHORT_PER_INPUT, copies, cuda_ms, graph_ms
     from datacomp_tpu_torch.tools.ab_codec import fibonacci
@@ -432,9 +441,7 @@ def check_codebook(corpus: np.ndarray) -> dict:
         # the same way: K4's yardstick, which bytes or operations are not
         "launch_floor_ms": short_ms(lambda t: t.zero_(), zeros),
         "plain_ms": cuda_ms(lambda t: codebook_reference(t), hs, 20),
-        # 1 KB in, 2 KB out; the sort's compares: 15 network stages and 48
-        # search steps a symbol
-        **bound(256 * 4 * 3, 256 * (15 + 48)),
+        **bound(*codebook_work(1)),
         "library_ms": None,
     }
     print(f"K4 codebook: {len(cases)} histograms, lengths and codes equal everywhere; "
@@ -652,6 +659,9 @@ def check_batched_kernels() -> dict:
     ``BATCH_KINDS`` rows with ``BATCH_VALID`` lengths, against the unbatched
     kernels row by row and the plain batched versions, each batched launch
     timed beside four unbatched launches of the same rows."""
+    from datacomp_tpu_torch.benchmark.kernels import (
+        bound, codebook_work, decode_work, encode_work, histogram_work,
+    )
     from datacomp_tpu_torch.core import huffman
     from datacomp_tpu_torch.ops import (
         build_decode_tables, codebook, codebook_batch, codebook_batch_reference, decode,
@@ -755,7 +765,7 @@ def check_batched_kernels() -> dict:
             "unbatched_device_ms": graph_ms(
                 lambda t: [histogram(t[b], v) for b, v in enumerate(valid)], xs, 48),
             "plain_ms": cuda_ms(lambda t: histogram_batch_reference(t, valid), xs, 6),
-            **bound(nbytes + rows * 256 * 4, nbytes),
+            **bound(*histogram_work(valid)),
         },
         "codebook": {
             "ms": cuda_ms(lambda h: codebook_batch(h), hs, 200),
@@ -764,7 +774,7 @@ def check_batched_kernels() -> dict:
                 lambda h: [codebook(h[b]) for b in range(rows)], hs, 48 * SHORT_PER_INPUT,
                 SHORT_PER_INPUT),
             "plain_ms": cuda_ms(lambda h: codebook_batch_reference(h), hs, 10),
-            **bound(rows * 256 * 4 * 3, rows * 256 * (15 + 48)),
+            **bound(*codebook_work(rows)),
         },
         "encode": {
             "ms": cuda_ms(lambda t: encode_batch(t, valid, lt, ct, out_words, SUBBLOCK), xs, 24),
@@ -777,8 +787,7 @@ def check_batched_kernels() -> dict:
                 lambda t: encode_batch_reference(t, valid, lt, ct, out_words, SUBBLOCK), xs, 3),
             "zero_fill_ms": graph_ms(lambda: torch.zeros(
                 rows * out_words, dtype=torch.int32, device="cuda"), [()], 48),
-            # the rows and tables in; the live words and gap arrays out
-            **bound(nbytes + rows * 256 * 8 + 4 * live + 4 * gap_off[-1], nbytes),
+            **bound(*encode_work(valid, live, gap_off[-1])),
         },
         "decode": {
             "ms": cuda_ms(lambda w_, g_: decode_batch(w_, word_off, g_, gap_off, lim, adj, sym,
@@ -791,8 +800,7 @@ def check_batched_kernels() -> dict:
                 ws, 48),
             "plain_ms": decode_plain_ms,
             "plain_rows": 1,
-            # the streams, gap arrays and tables in; the rows out
-            **bound(4 * w.numel() + 4 * g.numel() + table_bytes + nbytes, nbytes),
+            **bound(*decode_work(w.numel(), g.numel(), table_bytes, nbytes)),
         },
     }
     for name, r in res.items():
@@ -927,21 +935,37 @@ def check_sharded_step(d: str, corpus: np.ndarray) -> dict:
     return res
 
 
+def cli_out(argv: list, env: dict | None = None, echo: bool = True) -> tuple:
+    """The port's CLI in this process, with ``env`` set in the environment for
+    the call: (seconds, its output).  A non-zero exit fails the script."""
+    from datacomp_tpu_torch import cli
+
+    saved = {key: os.environ.get(key) for key in env or {}}
+    os.environ.update(env or {})
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(argv)
+    finally:
+        for key, value in saved.items():
+            if value is None:
+                del os.environ[key]
+            else:
+                os.environ[key] = value
+    seconds = time.perf_counter() - t0
+    if echo:
+        print(buf.getvalue(), end="", flush=True)
+    if rc != 0:
+        fail(f"{' '.join(argv[:2])} exited {rc}:\n{buf.getvalue()[-2000:]}")
+    return seconds, buf.getvalue()
+
+
 def cli_in_process(argv: list) -> tuple:
     """The port's CLI with ``--sharded --stages`` in this process, a job of one
     rank on ``cuda:0`` (a lone process is one, and runs the code a 1-rank
     ``torchrun`` would): (seconds, its output)."""
-    from datacomp_tpu_torch import cli
-
-    buf = io.StringIO()
-    t0 = time.perf_counter()
-    with contextlib.redirect_stdout(buf):
-        rc = cli.main([*argv, "--sharded", "--stages"])
-    seconds = time.perf_counter() - t0
-    print(buf.getvalue(), end="", flush=True)
-    if rc != 0:
-        fail(f"{argv[0]} --sharded at 1 rank exited {rc}:\n{buf.getvalue()[-2000:]}")
-    return seconds, buf.getvalue()
+    return cli_out([*argv, "--sharded", "--stages"])
 
 
 def torchrun_jobs(d: str, ranks: int, argvs: list) -> list:
@@ -1059,12 +1083,214 @@ def run_sharded_cli(d: str, src: str) -> dict:
     return res
 
 
+def counts() -> dict:
+    """The kernels this process launched since the counts were last set to 0."""
+    from datacomp_tpu_torch.ops import COUNTERS
+
+    return {name: k.value for name, (k, _) in COUNTERS.items() if k.value}
+
+
+def check_corpus_bench(d: str) -> dict:
+    """Phase 12a: ``gen 16 DIR --corpus``, then ``bench --corpus DIR`` on the
+    ``gpu`` and the ``cpu`` backend (java v1, every file round-tripped by the
+    bench): each file's compressed size the same on both.  16 MB, not the
+    64 MB default: the generators are Python loops (about 0.3 s a MB on the
+    host), and every file is one chunk at either size."""
+    from datacomp_tpu_torch.ops import reset_counters
+
+    corpus = os.path.join(d, "corpus")
+    gen_s, _ = cli_out(["gen", str(SURFACE_CORPUS_MB), corpus, "--corpus"], echo=False)
+    reports, launches = {}, {}
+    for backend in ("gpu", "cpu"):
+        reset_counters()
+        secs, out = cli_out(["bench", "--corpus", corpus, "--corpus-backend", backend,
+                             "--format-out", "json"], echo=False)
+        launches[backend] = counts()
+        reports[backend] = json.loads(out)
+    sizes = {b: {r["file"]: r["compressed_bytes"] for r in rep["files"]}
+             for b, rep in reports.items()}
+    if len(sizes["gpu"]) != 7 or sizes["gpu"] != sizes["cpu"]:
+        fail(f"corpus bench: gpu sizes {sizes['gpu']} differ from cpu sizes {sizes['cpu']}")
+    if launches["cpu"] or not launches["gpu"].get("encode", 0) + launches["gpu"].get(
+            "encode_batch", 0):
+        fail(f"corpus bench: launches {launches}: K2 must run on gpu, nothing on cpu")
+    totals = {b: rep["totals"] for b, rep in reports.items()}
+    print(f"12a corpus: gen {SURFACE_CORPUS_MB} MB in {gen_s} s; bench --corpus gpu and cpu: compressed sizes "
+          f"equal on all 7 files {sizes['gpu']}, every round trip held; gpu launches "
+          f"{launches['gpu']}; totals gpu {totals['gpu']}, cpu {totals['cpu']}", flush=True)
+    return {"sizes": sizes["gpu"], "launches": launches["gpu"], "totals": totals,
+            "gen_s": gen_s}
+
+
+def check_suite(d: str, src: str) -> dict:
+    """Phase 12b: ``bench --size-mb 16`` (a CPU and a GPU row for each
+    operation, the GPU row named after the card), then the suite's
+    ``benchmark_service`` on the GPU service with ``detailed_profiling`` over
+    the corpus in the fast v2 configuration: the trace is written, and its
+    device share printed when it holds CUDA events."""
+    from datacomp_tpu_torch.benchmark.suite import (
+        BenchmarkSuite, device_time_split, gpu_row_name,
+    )
+    from datacomp_tpu_torch.config import load_config
+    from datacomp_tpu_torch.services import create_compression_service
+
+    secs, out = cli_out(["bench", "--size-mb", "16", "--format-out", "json"], echo=False)
+    report = json.loads(out)
+    gpu = f"GPU ({torch.cuda.get_device_name(0)})"
+    rows = {(r["service"], r["operation"]): r for r in report["results"]}
+    if set(rows) != {(name, op) for name in ("CPU", gpu) for op in ("compress", "decompress")}:
+        fail(f"bench: rows {sorted(rows)}; a CPU and a {gpu} row for each operation expected")
+    print(f"12b bench --size-mb 16 ({secs} s): "
+          + "; ".join(f"{name} {op} {r['throughput_mbps']} MB/s" for (name, op), r in
+                      rows.items())
+          + f"; speedup compress {report['speedup_compress']}, decompress "
+          f"{report['speedup_decompress']}", flush=True)
+    cfg = load_config(compression={"chunk_size_mb": 16, "format_version": 2,
+                                   "codebook_mode": "fast"},
+                      benchmark={"detailed_profiling": True, "warmup_iterations": 1,
+                                 "measurement_iterations": 3})
+    svc = create_compression_service(cfg)
+    try:
+        profiled = BenchmarkSuite(cfg).benchmark_service(svc, gpu_row_name(svc), src, d)
+    finally:
+        svc.close()
+    trace = os.path.join(d, "torch-trace-GPU.json")
+    if not os.path.isfile(trace):
+        fail(f"detailed_profiling wrote no {trace}")
+    split = device_time_split(trace)
+    if split is None:
+        print("profiler: no device events", flush=True)
+    else:
+        print(f"12b profiler, 3 compresses of the {CORPUS_MB} MB corpus (fast v2, "
+              f"{profiled[0].mean_s * 1e3} ms each, trace {os.path.getsize(trace)} bytes): "
+              f"kernels {split['kernel_ms']} ms, memcpy {split['memcpy_ms']} ms, memset "
+              f"{split['memset_ms']} ms, device busy {split['busy_ms']} ms of a "
+              f"{split['window_ms']} ms window: idle share {split['idle_share']}", flush=True)
+    return {"rows": {f"{name} {op}": r["throughput_mbps"] for (name, op), r in rows.items()},
+            "speedup_compress": report["speedup_compress"],
+            "speedup_decompress": report["speedup_decompress"], "trace_split": split,
+            "profiled_compress_ms": profiled[0].mean_s * 1e3}
+
+
+def check_kernel_bench(hist: dict, codec: dict, cbook: dict) -> dict:
+    """Phase 12c: ``bench --kernels --kind text``: every row exact; each
+    row's device time beside the one phases 2-4 measured for the same kernel
+    on the same text chunk (phase 3 ran the v2 auto cap, 8 bits on text)."""
+    secs, out = cli_out(["bench", "--kernels", "--kind", "text", "--format-out", "json"],
+                        echo=False)
+    report = json.loads(out)
+    rows = {k: v for k, v in report["kernels"].items() if not k.startswith("_")}
+    want = {"histogram", "histogram-library", "codebook", "encode", "decode"}
+    if not want <= set(rows) or not all(r["exact"] for r in rows.values()):
+        fail(f"bench --kernels: rows {sorted(rows)}, exact {[r['exact'] for r in rows.values()]}")
+    earlier = {"histogram": hist["kinds"]["text"]["device_ms"], "codebook": cbook["device_ms"]}
+    for name in rows:
+        if name.startswith(("encode", "decode")):
+            earlier[name] = codec["text"][name.split("-")[0]]["device_ms"]
+    print(f"12c bench --kernels --kind text ({secs} s), device {report['device']}:", flush=True)
+    for name, r in rows.items():
+        beside = (f"; phase 2-4 {earlier[name]} ms, ratio {r['ms_per_chunk'] / earlier[name]}"
+                  if name in earlier else "")
+        print(f"  {name}: {r['ms_per_chunk']} ms (call {r['call_ms']}), bound {r['bound_ms']} "
+              f"[{r['bound_kind']}], efficiency {r['efficiency']}, depth {r.get('depth')}"
+              f"{beside}", flush=True)
+    print(f"  primitives: {json.dumps(report['kernels']['_primitives'])}", flush=True)
+    return {"rows": rows, "primitives": report["kernels"]["_primitives"],
+            "device": report["device"], "earlier_ms": earlier, "seconds": secs}
+
+
+def check_batch_bench() -> dict:
+    """Phase 12d: ``bench --batched``: both benches at B = 1, 4 and 8."""
+    secs, out = cli_out(["bench", "--batched", "--format-out", "json"], echo=False)
+    rows = json.loads(out)["pipeline"]
+    want = {f"{bench}-b{b}" for bench in ("pipeline", "decode") for b in (1, 4, 8)}
+    if set(rows) != want:
+        fail(f"bench --batched: rows {sorted(rows)}, expected {sorted(want)}")
+    print(f"12d bench --batched ({secs} s): " + "; ".join(
+        f"{name} {r['compute_ms_per_chunk']} ms/chunk, overhead {r['overhead_ms_per_program']} "
+        f"ms/call" for name, r in rows.items()), flush=True)
+    return rows
+
+
+def check_resume(d: str, src: str) -> dict:
+    """Phase 12e: phase 6's fast v2 ``.dcz`` cut after chunk 2, with its
+    ``.partial`` sidecar, then ``resume SRC DCZ 16 --last-chunk 2`` at
+    ``batch_chunks`` 1: the phase-6 file byte for byte, K2 once a resumed
+    chunk that is not stored raw."""
+    from datacomp_tpu_torch.core import read_container
+    from datacomp_tpu_torch.ops import max_code_len, reset_counters
+    from datacomp_tpu_torch.services import pipeline
+
+    full_path = os.path.join(d, "fast.dcz")
+    header, _ = read_container(full_path)
+    dcz = os.path.join(d, "resumed.dcz")
+    with open(dcz + pipeline.PARTIAL_SUFFIX, "wb") as f:
+        pipeline._write_partial_header(f, header)
+        for c in header.chunks[:3]:
+            pipeline._append_partial_chunk(f, c)
+    with open(full_path, "rb") as f:
+        full = f.read()
+    with open(dcz, "wb") as f:
+        f.write(full[: header.chunks[2].compressed_offset + header.chunks[2].compressed_size])
+    reset_counters()
+    secs, _ = cli_out(["resume", src, dcz, "16", "--last-chunk", "2", "--stages"],
+                      env={"DATACOMP_COMPRESSION_FORMAT_VERSION": "2",
+                           "DATACOMP_COMPRESSION_CODEBOOK_MODE": "fast",
+                           "DATACOMP_DEVICE_BATCH_CHUNKS": "1"}, echo=False)
+    launches = counts()
+    coded = sum(1 for c in header.chunks[3:] if max_code_len(c.code_lengths) > 0)
+    if not filecmp.cmp(dcz, full_path, shallow=False):
+        fail("resume: the resumed .dcz differs from phase 6's")
+    if os.path.exists(dcz + pipeline.PARTIAL_SUFFIX):
+        fail("resume: the .partial sidecar is left behind")
+    if launches.get("encode", 0) != coded or launches.get("encode_batch", 0):
+        fail(f"resume: launches {launches}; K2 once for each of {coded} coded chunks expected")
+    print(f"12e resume --last-chunk 2 ({secs} s): .dcz byte-identical to phase 6's; "
+          f"launches {launches} for chunks 3-{len(header.chunks) - 1} ({coded} coded)",
+          flush=True)
+    return {"launches": launches, "coded": coded, "seconds": secs}
+
+
+def check_dashboard_config_stats(d: str) -> None:
+    """Phase 12f: ``dashboard --html`` names the card; ``config --init`` then
+    ``config --file`` reads it back; ``stats`` lists this process's runs."""
+    name = torch.cuda.get_device_name(0)
+    html = os.path.join(d, "dashboard.html")
+    _, out = cli_out(["dashboard", "--html", html], echo=False)
+    with open(html) as f:
+        page = f.read()
+    if name not in out or name not in page:
+        fail(f"dashboard: {name} is not named:\n{out}")
+    toml = os.path.join(d, "datacomp.toml")
+    cli_out(["config", "--init", toml], echo=False)
+    _, out = cli_out(["config", "--file", toml], echo=False)
+    if "[benchmark]" not in out or "measurement_iterations = 5" not in out:
+        fail(f"config --file: {out}")
+    _, stats = cli_out(["stats"], echo=False)
+    device = next(line for line in out.splitlines() if "platform" in line)
+    print(f"12f dashboard names {name}; config --init / --file round trip ({device.strip()}); "
+          f"stats lists {len(stats.splitlines())} operations", flush=True)
+
+
+def check_surfaces(d: str, src: str, hist: dict, codec: dict, cbook: dict) -> dict:
+    """Phase 12, the surfaces, through ``cli.main`` in this process."""
+    t0 = time.perf_counter()
+    res = {"corpus": check_corpus_bench(d), "suite": check_suite(d, src),
+           "kernel_bench": check_kernel_bench(hist, codec, cbook),
+           "batch_bench": check_batch_bench(), "resume": check_resume(d, src)}
+    check_dashboard_config_stats(d)
+    res["seconds"] = time.perf_counter() - t0
+    print("surfaces: " + json.dumps(res), flush=True)
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
               file=sys.stderr)
         return 1
     from datacomp_tpu_torch import native
+    from datacomp_tpu_torch.benchmark.kernels import bound, card_line, histogram_work
     from datacomp_tpu_torch.config import load_config
     from datacomp_tpu_torch.ops import _build
 
@@ -1103,6 +1329,7 @@ def main() -> int:
         sharded = {"step": check_sharded_step(d, np.fromfile(src, np.uint8)),
                    **run_sharded_cli(d, src)}
         print("sharded: " + json.dumps(sharded), flush=True)
+        check_surfaces(d, src, hist, codec, cbook)
     jax_side = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "datacomp_tpu"))
     if jax_side:
         fail(f"jax or the JAX package was imported: {jax_side}")
@@ -1118,7 +1345,7 @@ def main() -> int:
                 "codec_path_launches": sum(r["launches"][name] for r in (fast, dev2, dev1)),
                 "max_abs_err": variants["max_abs_err"][name], "config": config,
                 "ms": ms[config, "random"]["ms"], "device_ms": ms[config, "random"]["device_ms"],
-                "plain_ms": hist["plain_ms"], **bound(valid + 256 * 4, valid),
+                "plain_ms": hist["plain_ms"], **bound(*histogram_work([valid])),
                 "library_ms": ms["torch.bincount", "random"]["ms"]}
 
     kernels = [

@@ -1,28 +1,41 @@
-"""Command-line interface of the port: ``compress``, ``decompress``,
-``verify`` and ``devices``, with the JAX package's CLI conventions (same
+"""Command-line interface of the port: the JAX package's verbs (``compress``,
+``decompress``, ``verify``, ``resume``, ``bench``, ``gen``, ``stats``,
+``config``, ``ui``, ``dashboard``, ``devices``) with its conventions (same
 arguments, progress line and report).
 
     python -m datacomp_tpu_torch.cli compress IN OUT.dcz [CHUNK_MB] --format 2 --codebook-mode fast
     python -m datacomp_tpu_torch.cli compress IN OUT.dcz --format 2 --codebook-mode device
     python -m datacomp_tpu_torch.cli decompress OUT.dcz RESTORED
     python -m datacomp_tpu_torch.cli verify OUT.dcz --deep
+    python -m datacomp_tpu_torch.cli resume IN OUT.dcz --last-chunk 2
+    python -m datacomp_tpu_torch.cli bench --size-mb 16 --format-out json
+    python -m datacomp_tpu_torch.cli bench --kernels --kind text
+    python -m datacomp_tpu_torch.cli bench --batched
+    python -m datacomp_tpu_torch.cli gen 64 CORPUS_DIR --corpus
+    python -m datacomp_tpu_torch.cli bench --corpus CORPUS_DIR --corpus-backend gpu
+    python -m datacomp_tpu_torch.cli dashboard --html report.html
+    python -m datacomp_tpu_torch.cli config --init datacomp.toml
     python -m torch.distributed.run --standalone --nproc_per_node 2 \
         -m datacomp_tpu_torch.cli compress IN OUT.dcz --sharded --format 2
 
 The GPU service needs a CUDA device and raises without one.  The config's
 ``device`` section selects otherwise: ``DATACOMP_DEVICE_PLATFORM=cpu`` runs
 the kernels' plain PyTorch versions, ``DATACOMP_DEVICE_FORCE_CPU=1`` the host
-codec.
+codec.  ``bench --kernels`` and ``bench --batched`` time the kernels on the
+card and need one; ``resume`` takes the JAX verb's arguments, so its format
+and codebook mode come from the config (``DATACOMP_COMPRESSION_*``).
 """
 
 from __future__ import annotations
 
 import argparse
+import json
 import os
 import sys
 import time
 
 from .config import load_config
+from .models import MetricsService
 from .services import create_compression_service, get_available_devices
 
 
@@ -113,7 +126,6 @@ def _run_sharded(args, compressing: bool) -> int:
     prints every rank's stage breakdown and the kernel launches, plain
     calls and host routes summed over the ranks."""
     import functools
-    import json
 
     import torch.distributed as dist
 
@@ -214,9 +226,179 @@ def cmd_verify(args) -> int:
         svc.close()
 
 
+def cmd_resume(args) -> int:
+    svc = _make_service(args)
+    try:
+        t0 = time.perf_counter()
+        svc.resume_compression(
+            args.input, args.output, args.last_chunk,
+            _progress_printer("Resuming", _input_size(args.input))
+        )
+        _report("Compression", args.input, args.output, time.perf_counter() - t0)
+        if args.stages:
+            print(svc.get_last_stage_metrics().summary())
+        return 0
+    finally:
+        svc.close()
+
+
+def cmd_bench(args) -> int:
+    if args.batched:
+        from .benchmark.kernels import (
+            batch_chunks,
+            cuda_device,
+            format_pipeline_batch_results,
+            run_decode_batch_bench,
+            run_pipeline_batch_bench,
+        )
+
+        cuda_device("bench --batched")
+        blob = batch_chunks(args.size_mb, args.kind)  # both benches take these chunks
+        results = run_pipeline_batch_bench(size_mb=args.size_mb, kind=args.kind, blob=blob)
+        results.update(run_decode_batch_bench(size_mb=args.size_mb, kind=args.kind, blob=blob))
+        if args.format_out == "json":
+            print(json.dumps({"chunk_mb": args.size_mb, "pipeline": results}, indent=2))
+        elif args.format_out == "csv":
+            print("name,batch,compute_ms_per_chunk,mbps_per_chunk,"
+                  "overhead_ms_per_program,overhead_ms_per_chunk")
+            for name, r in results.items():
+                print(f"{name},{r['batch']},{r['compute_ms_per_chunk']},"
+                      f"{r['mbps_per_chunk']},{r['overhead_ms_per_program']},"
+                      f"{r['overhead_ms_per_chunk']}")
+        else:
+            print(format_pipeline_batch_results(results, args.size_mb))
+        return 0
+    if args.kernels:
+        from .benchmark.kernels import format_kernel_results, run_kernel_bench
+
+        results = run_kernel_bench(size_mb=args.size_mb, kind=args.kind)
+        print(format_kernel_results(results, args.size_mb, args.format_out))
+        return 0
+    if args.corpus:
+        from .benchmark.corpus import format_corpus_results, run_corpus_bench
+
+        report = run_corpus_bench(args.corpus, backend=args.corpus_backend)
+        print(format_corpus_results(report, args.format_out))
+        return 0
+    from .benchmark.suite import BenchmarkSuite
+
+    suite = BenchmarkSuite(load_config())
+    results = suite.run_full_suite(input_path=args.input, size_mb=args.size_mb)
+    print(suite.format_results(results, args.format_out))
+    return 0
+
+
+def cmd_gen(args) -> int:
+    from .utils.testdata import (
+        generate_compressible_file,
+        generate_corpus,
+        generate_random_file,
+    )
+
+    if args.corpus:
+        written = generate_corpus(args.output, scale=args.size_mb / 64.0)
+        for path, kind in written:
+            print(f"  {path}  [{kind}]")
+        print(f"Generated {len(written)}-file corpus in {os.path.abspath(args.output)}")
+        return 0
+    if args.compressible:
+        generate_compressible_file(args.size_mb, args.output)
+    else:
+        generate_random_file(args.size_mb, args.output)
+    print(f"Generated: {os.path.abspath(args.output)}")
+    return 0
+
+
+def cmd_ui(args) -> int:
+    """Interactive terminal app: the reference's 4-view windowed application
+    (Dashboard/Compress/Benchmark/Settings) as a curses TUI."""
+    from .ui.app import run_app
+
+    return run_app()
+
+
+def cmd_dashboard(args) -> int:
+    from .ui import export_html, render_dashboard
+
+    print(render_dashboard())
+    if args.html:
+        export_html(args.html, theme=args.theme)
+        print(f"HTML report written to {args.html}")
+    return 0
+
+
 def cmd_devices(args) -> int:
     for line in get_available_devices():
         print(line)
+    return 0
+
+
+TEMPLATE_TOML = """\
+# datacomp-tpu (PyTorch/CUDA port) configuration (all keys optional; defaults shown)
+[datacomp.compression]
+chunk-size-mb = 16
+cpu-threads = 0            # 0 = auto (clamp(cores, 2, 8))
+use-memory-mapped-io = true
+subblock-symbols = 4032    # v2 gap-array granularity (divisible by 32 and by 2-4)
+format-version = 1         # 1 = reference-bit-compatible, 2 = +gap arrays
+codebook-mode = "java"     # java | fast | device
+max-code-len = 0           # 0 = unlimited (v1) / auto (v2); "auto" = shallowest
+                           # cap costing <0.5% bits; N caps at N bits; 32 = opt out
+
+[datacomp.device]
+force-cpu = false          # the host codec instead of the GPU service
+platform = "any"           # any (a CUDA device) | cpu (the kernels' plain PyTorch versions)
+device-index = -1          # -1 = auto (cuda:LOCAL_RANK under torchrun, else cuda:0)
+parallel-chunks = 3
+batch-chunks = 0           # 0 = auto (4 on a CUDA device, 1 on the CPU), else 1..16
+
+[datacomp.benchmark]
+warmup-iterations = 3
+measurement-iterations = 5
+detailed-profiling = false # torch.profiler trace of the measured compresses
+
+[datacomp.logging]
+level = "INFO"
+metrics-enabled = true
+file-path = ""
+
+[datacomp.output]
+verify-after-compress = true
+"""
+
+
+def cmd_config(args) -> int:
+    """Settings surface (replaces the reference's JavaFX Settings view)."""
+    if args.init:
+        path = args.init
+        if os.path.exists(path) and not args.force:
+            print(f"error: {path} exists (use --force to overwrite)", file=sys.stderr)
+            return 1
+        with open(path, "w") as f:
+            f.write(TEMPLATE_TOML)
+        print(f"Wrote config template to {path}")
+        return 0
+    import dataclasses
+
+    cfg = load_config(args.file)
+    for section in ("compression", "device", "benchmark", "logging", "output"):
+        print(f"[{section}]")
+        for fld in dataclasses.fields(getattr(cfg, section)):
+            print(f"  {fld.name} = {getattr(getattr(cfg, section), fld.name)!r}")
+    return 0
+
+
+def cmd_stats(args) -> int:
+    """This process's recorded operations: a fresh process has none."""
+    recent = MetricsService.get_instance().get_recent()
+    if not recent:
+        print("No operations recorded in this session")
+        return 0
+    for m in recent:
+        print(
+            f"{m.file_name}: {m.operation.value} {m.original_size:,} B "
+            f"@ {m.throughput_mbps:.1f} MB/s [{m.backend}]"
+        )
     return 0
 
 
@@ -263,8 +445,62 @@ def build_parser() -> argparse.ArgumentParser:
     sp.add_argument("--deep", action="store_true", help="full decode + checksum check")
     sp.set_defaults(func=cmd_verify)
 
+    sp = sub.add_parser("resume", help="resume an interrupted compression")
+    common(sp)
+    sp.add_argument("--last-chunk", type=int, required=True,
+                    help="highest chunk index known completed (-1 restarts)")
+    sp.set_defaults(func=cmd_resume)
+
+    sp = sub.add_parser("bench", help="run the CPU-vs-GPU benchmark suite")
+    sp.add_argument("--input", default=None, help="benchmark input file (default: generated)")
+    sp.add_argument("--size-mb", type=int, default=16)
+    sp.add_argument("--format-out", choices=["console", "json", "csv"], default="console")
+    sp.add_argument("--kernels", action="store_true",
+                    help="time the device kernels (device time by CUDA-graph replay, "
+                         "call time by events) instead of the services; needs a CUDA device")
+    sp.add_argument("--batched", action="store_true",
+                    help="time the batched device calls (B=1/4/8 chunks a call); "
+                         "needs a CUDA device")
+    sp.add_argument("--kind", default="text",
+                    choices=["text", "compressible", "skewed", "random"],
+                    help="data kind for --kernels and --batched (default text)")
+    sp.add_argument("--corpus", default=None, metavar="DIR",
+                    help="benchmark every file in DIR: per-file ratio vs the "
+                         "reference's published per-type table + entropy bound")
+    sp.add_argument("--corpus-backend", choices=["cpu", "gpu"], default="cpu")
+    sp.set_defaults(func=cmd_bench)
+
+    sp = sub.add_parser("gen", help="generate deterministic test data")
+    sp.add_argument("size_mb", type=int)
+    sp.add_argument("output")
+    sp.add_argument("--compressible", action="store_true")
+    sp.add_argument("--corpus", action="store_true",
+                    help="treat OUTPUT as a directory; write the Silesia-style "
+                         "mixed corpus scaled to SIZE_MB total")
+    sp.set_defaults(func=cmd_gen)
+
+    sp = sub.add_parser("stats", help="show session metrics")
+    sp.set_defaults(func=cmd_stats)
+
+    sp = sub.add_parser("ui", help="interactive terminal app (4 views: "
+                                   "dashboard/compress/benchmark/settings)")
+    sp.set_defaults(func=cmd_ui)
+
+    sp = sub.add_parser("dashboard", help="system/device info + metrics dashboard")
+    sp.add_argument("--html", default=None, help="also write an HTML report here")
+    sp.add_argument("--theme", choices=["dark", "light", "auto"], default="dark",
+                    help="HTML report theme (auto follows prefers-color-scheme)")
+    sp.set_defaults(func=cmd_dashboard)
+
     sp = sub.add_parser("devices", help="enumerate CUDA devices")
     sp.set_defaults(func=cmd_devices)
+
+    sp = sub.add_parser("config", help="show effective configuration / write a template")
+    sp.add_argument("--file", default=None, help="config file to load")
+    sp.add_argument("--init", default=None, metavar="PATH",
+                    help="write a commented datacomp.toml template to PATH")
+    sp.add_argument("--force", action="store_true")
+    sp.set_defaults(func=cmd_config)
     return p
 
 

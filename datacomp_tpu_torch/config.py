@@ -1,12 +1,17 @@
 """Typed application configuration of the port.
 
-The ``compression``, ``logging`` and ``output`` sections, the sources and the
-``DATACOMP_<SECTION>_<KEY>`` variables are those of ``datacomp_tpu/config.py``,
-so one setting gives both packages the same ``.dcz`` bytes.  Each section
-keeps only the fields the port reads: the TPU knobs (histogram backend,
-fallback), the fields only the JAX package's UI and benchmark read,
-and the ``benchmark`` section have no user here yet.  Unknown keys in a file
-or the environment are ignored.
+The ``compression``, ``device``, ``benchmark``, ``logging`` and ``output``
+sections, the sources and the ``DATACOMP_<SECTION>_<KEY>`` variables are
+those of ``datacomp_tpu/config.py``, so one setting gives both packages the
+same ``.dcz`` bytes.  Each section keeps only the fields the port reads.
+No TPU knob comes across (``histogram_backend``, ``fallback_on_error``,
+``auto_detect``), nor the fields that the JAX package keeps for the
+reference's sake and reads nowhere: ``io_buffer_size_kb``,
+``chunking_threshold_mb``, ``benchmark.output_format`` (``bench
+--format-out`` chooses the format) and the output section's
+``default_directory``, ``compressed_extension`` and ``keep_original``.
+Unknown keys in a file or the environment are ignored, so the JAX
+package's config files load unchanged.
 
 Config sources, in override order (lowest → highest):
 1. built-in defaults below,
@@ -64,6 +69,13 @@ class DeviceConfig:
 
 
 @dataclass(frozen=True)
+class BenchmarkConfig:
+    warmup_iterations: int = 3
+    measurement_iterations: int = 5
+    detailed_profiling: bool = False  # a torch.profiler trace of the measured compresses
+
+
+@dataclass(frozen=True)
 class LoggingConfig:
     level: str = "INFO"
     metrics_enabled: bool = True
@@ -79,6 +91,7 @@ class OutputConfig:
 class AppConfig:
     compression: CompressionConfig = field(default_factory=CompressionConfig)
     device: DeviceConfig = field(default_factory=DeviceConfig)
+    benchmark: BenchmarkConfig = field(default_factory=BenchmarkConfig)
     logging: LoggingConfig = field(default_factory=LoggingConfig)
     output: OutputConfig = field(default_factory=OutputConfig)
 
@@ -97,6 +110,7 @@ class AppConfig:
 _SECTION_TYPES = {
     "compression": CompressionConfig,
     "device": DeviceConfig,
+    "benchmark": BenchmarkConfig,
     "logging": LoggingConfig,
     "output": OutputConfig,
 }

@@ -18,7 +18,11 @@ buffers), with a 1-symbol last sub-block, and on random streams (no fault,
 mid-word and ``out_words`` cut inside a tile.  The sharded compress step of
 ``datacomp_tpu_torch.parallel`` at world size 1, its all-gather on NCCL,
 against the batched kernels and the plain versions (1, 4, 16 and 17 rows),
-and ``pick_device`` with ``LOCAL_RANK`` past the device count.
+and ``pick_device`` with ``LOCAL_RANK`` past the device count.  The
+benchmark module on the card: the kernel bench's rows exact with positive
+times and bounds, the batch benches, the suite's GPU row named after the
+card, the corpus bench's ``gpu`` sizes equal to its ``cpu`` ones, and
+``resume`` equal to a one-shot compress.
 
 Marked ``gpu``: every test skips without a CUDA device.  On a machine with
 one (and no jax, which ``tests/conftest.py`` imports):
@@ -663,3 +667,101 @@ def test_pick_device_local_rank_past_the_count_raises(cuda, monkeypatch):
     assert pick_device("any", 0) == torch.device("cuda", 0)  # an explicit index wins
     monkeypatch.setenv("LOCAL_RANK", "0")
     assert pick_device("any", -1) == torch.device("cuda", 0)
+
+
+def test_kernel_bench_rows(cuda):
+    """``bench --kernels`` at 1 MiB: every row exact, with positive times and
+    bounds; the primitives all read; the card named."""
+    from datacomp_tpu_torch.benchmark.kernels import run_kernel_bench
+
+    res = run_kernel_bench(1, "text")
+    rows = {k: v for k, v in res.items() if not k.startswith("_")}
+    assert {"histogram", "histogram-library", "codebook", "encode", "decode"} <= set(rows)
+    for name, r in rows.items():
+        assert r["exact"], name
+        assert r["ms_per_chunk"] > 0 and r["call_ms"] > 0 and r["bound_ms"] > 0, name
+        assert 0 < r["efficiency"], name
+    assert rows["codebook"]["bound_kind"] == "launch floor"
+    prim = res["_primitives"]
+    assert "suspect" not in prim and all(v > 0 for v in prim.values()), prim
+    assert res["_device"]["name"] == torch.cuda.get_device_name()
+    assert res["_device"]["power_limit"].endswith(" W"), res["_device"]
+
+
+@pytest.mark.parametrize("bench", ["run_pipeline_batch_bench", "run_decode_batch_bench"])
+def test_batch_benches(cuda, bench):
+    from datacomp_tpu_torch.benchmark import kernels
+
+    rows = getattr(kernels, bench)(1, "text", (1, 3))
+    assert [r["batch"] for r in rows.values()] == [1, 3]
+    assert all(r["compute_ms_per_chunk"] > 0 and r["call_ms"] > 0 for r in rows.values())
+
+
+def test_batch_benches_share_their_chunks(cuda):
+    """``bench --batched`` makes the chunks once and gives both benches the
+    same ones; too few rows, or rows of another size, raise."""
+    from datacomp_tpu_torch.benchmark import kernels
+
+    blob = kernels.batch_chunks(1, "text", 3)
+    for bench in (kernels.run_pipeline_batch_bench, kernels.run_decode_batch_bench):
+        rows = bench(1, "text", (1, 3), blob=blob)
+        assert [r["batch"] for r in rows.values()] == [1, 3]
+        with pytest.raises(ValueError, match="need at least 4 rows"):
+            bench(1, "text", (1, 4), blob=blob)
+        with pytest.raises(ValueError, match="of 2 MiB"):
+            bench(2, "text", (1, 3), blob=blob)
+
+
+def test_suite_gpu_row_names_the_card(cuda, monkeypatch):
+    from datacomp_tpu_torch.benchmark import BenchmarkSuite
+
+    monkeypatch.delenv("DATACOMP_DEVICE_PLATFORM", raising=False)
+    cfg = datacomp_tpu_torch.config.load_config(
+        compression={"chunk_size_mb": 1},
+        benchmark={"warmup_iterations": 0, "measurement_iterations": 1})
+    res = BenchmarkSuite(cfg).run_full_suite(size_mb=1)
+    gpu = f"GPU ({torch.cuda.get_device_name()})"
+    assert [r.service_name for r in res] == ["CPU", "CPU", gpu, gpu]
+    assert res[0].compressed_size == res[2].compressed_size
+
+
+def test_corpus_bench_gpu_gives_the_cpu_sizes(cuda, tmp_path, monkeypatch):
+    from datacomp_tpu_torch.benchmark.corpus import run_corpus_bench
+    from datacomp_tpu_torch.utils.testdata import generate_corpus
+
+    monkeypatch.delenv("DATACOMP_DEVICE_PLATFORM", raising=False)
+    generate_corpus(str(tmp_path), scale=1 / 64)
+    reports = {b: run_corpus_bench(str(tmp_path), backend=b) for b in ("gpu", "cpu")}
+    sizes = {b: {r["file"]: r["compressed_bytes"] for r in rep["files"]}
+             for b, rep in reports.items()}
+    assert len(sizes["gpu"]) == 7 and sizes["gpu"] == sizes["cpu"]
+
+
+def test_resume_on_the_card_equals_one_shot(cuda, tmp_path, monkeypatch):
+    from datacomp_tpu_torch import cli
+    from datacomp_tpu_torch.services import pipeline
+
+    monkeypatch.delenv("DATACOMP_DEVICE_PLATFORM", raising=False)
+    src = tmp_path / "r.bin"
+    src.write_bytes(generate_bytes("text", 4 << 20))
+    one = str(tmp_path / "one.dcz")
+    assert cli.main(["compress", str(src), one, "1", "--format", "2", "--codebook-mode", "fast",
+                     "--no-verify"]) == 0
+    with open(one, "rb") as f:
+        full = f.read()
+    header, _ = read_container(one)
+    dcz = str(tmp_path / "cut.dcz")
+    with open(dcz + pipeline.PARTIAL_SUFFIX, "wb") as f:
+        pipeline._write_partial_header(f, header)
+        for c in header.chunks[:2]:
+            pipeline._append_partial_chunk(f, c)
+    with open(dcz, "wb") as f:
+        f.write(full[: header.chunks[1].compressed_offset + header.chunks[1].compressed_size])
+    monkeypatch.setenv("DATACOMP_COMPRESSION_FORMAT_VERSION", "2")
+    monkeypatch.setenv("DATACOMP_COMPRESSION_CODEBOOK_MODE", "fast")
+    ops.reset_counters()
+    assert cli.main(["resume", str(src), dcz, "1", "--last-chunk", "1"]) == 0
+    launches = ops.COUNTERS["encode"][0].value + ops.COUNTERS["encode_batch"][0].value
+    assert launches >= 1 and not any(c[1].value for c in ops.COUNTERS.values())
+    with open(dcz, "rb") as f:
+        assert f.read() == full

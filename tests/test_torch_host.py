@@ -44,7 +44,8 @@ def test_codebooks_identical(mode, max_len, seed, alphabet):
     assert pcore.validate_lengths(pl) == jcore.validate_lengths(jl)
 
 
-@pytest.mark.parametrize("kind", ["random", "compressible", "text", "zeros", "skewed"])
+@pytest.mark.parametrize("kind", ["random", "compressible", "text", "zeros", "skewed",
+                                  "english", "source", "logs", "xml", "binary"])
 def test_test_data_identical(kind):
     for n in (0, 1, 4099):
         assert ptestdata.generate_bytes(kind, n) == jtestdata.generate_bytes(kind, n)
@@ -76,6 +77,19 @@ def test_config_identical(monkeypatch):
     p = pconfig.load_config(compression=over)
     assert vars(p.compression) == {k: getattr(j.compression, k) for k in vars(p.compression)}
     assert p.chunk_size_bytes == j.chunk_size_bytes == 2 << 20
+    # the benchmark and output sections: the fields the port keeps; the JAX
+    # package's other keys load and are ignored
+    monkeypatch.setenv("DATACOMP_BENCHMARK_WARMUP_ITERATIONS", "1")
+    monkeypatch.setenv("DATACOMP_OUTPUT_VERIFY_AFTER_COMPRESS", "0")
+    monkeypatch.setenv("DATACOMP_OUTPUT_COMPRESSED_EXTENSION", ".dz2")
+    bench = {"output_format": "json", "detailed_profiling": True}
+    j = jconfig.load_config(benchmark=bench, output={"keep_original": False})
+    p = pconfig.load_config(benchmark=bench, output={"keep_original": False})
+    for section in ("benchmark", "output"):
+        mine = vars(getattr(p, section))
+        assert mine == {k: getattr(getattr(j, section), k) for k in mine}, section
+    assert (p.benchmark.warmup_iterations, p.benchmark.detailed_profiling,
+            p.output.verify_after_compress) == (1, True, False)
     assert p.compression.effective_max_code_len() == -1
     with pytest.raises(ValueError, match="subblock-symbols"):
         pconfig.load_config(compression={"format_version": 2, "subblock_symbols": 100})
