@@ -112,6 +112,22 @@
     byte for byte, K2 once a resumed chunk not stored raw.  12f:
     ``dashboard --html`` names the card, ``config --init`` then ``config
     --file`` reads the template back, ``stats`` runs.
+13. The local level of the mesh: one process driving several devices,
+    here ``[cuda:0, cuda:0]`` (two entries on the one card; on a host with
+    several cards ``--sharded`` alone takes them all).  ``compress_multihost``
+    then ``decompress_multihost`` of the corpus through that mesh, device v2
+    (groups of one chunk a device through the sharded compress step) and
+    fast v2 (compress through the codec; decompress through the sharded
+    decompress step): each ``.dcz`` equals phase 7's or phase 6's, the
+    corpus is restored, K1, K4 and K2 launched once for each device in each
+    group with a member on the device and K3 once for each chunk of depth 1
+    to 16 (the counts derived from the container; fast v2's compress as
+    phase 10's groups of four), the deeper chunks took the host route, and
+    no plain version ran.  Wall MB/s and the stages of each.  Then
+    ``graft_entry.dryrun_multichip(torch.cuda.device_count())`` and
+    ``graft_entry.entry()``'s pipeline on the card, equal to its plain
+    version and timed by events.  The config's ``fallback_on_error`` is off,
+    and nothing here sets it.
 
 Kernel, plain and library times are taken with CUDA events after a warm-up,
 cycling through copies of the inputs that together exceed the L2 cache, so
@@ -964,8 +980,9 @@ def cli_out(argv: list, env: dict | None = None, echo: bool = True) -> tuple:
 def cli_in_process(argv: list) -> tuple:
     """The port's CLI with ``--sharded --stages`` in this process, a job of one
     rank on ``cuda:0`` (a lone process is one, and runs the code a 1-rank
-    ``torchrun`` would): (seconds, its output)."""
-    return cli_out([*argv, "--sharded", "--stages"])
+    ``torchrun`` would; ``device_index`` 0 keeps it on one card where the
+    host has several): (seconds, its output)."""
+    return cli_out([*argv, "--sharded", "--stages"], env={"DATACOMP_DEVICE_DEVICE_INDEX": "0"})
 
 
 def torchrun_jobs(d: str, ranks: int, argvs: list) -> list:
@@ -1080,6 +1097,97 @@ def run_sharded_cli(d: str, src: str) -> dict:
                                         for leg, _, _ in legs])
     for (leg, label, args), c, dc in zip(legs, compressed, decompressed):
         res[leg].append(check_sharded_cli(d, src, label, args, leg, 2, c, dc, at_once=True))
+    return res
+
+
+def local_launches(dcz: str, device_codebook: bool, local: int) -> tuple:
+    """The launches and host decode routes that a compress → decompress of
+    ``dcz`` through a mesh of ``local`` devices implies: device v2 runs K1,
+    K4 and K2 once for each device in each group of ``local`` chunks with a
+    chunk not stored raw; host codebooks go through the codec in groups of
+    ``AUTO_BATCH``; every v2 chunk of depth 1 to 16 decodes on a device of
+    its own (one K3 launch), and the deeper ones take the host route."""
+    from datacomp_tpu_torch.core import read_container
+    from datacomp_tpu_torch.ops import TABLE_BITS, max_code_len
+
+    want, _ = expected_launches(dcz, False, AUTO_BATCH, probes=0)
+    want = {name: 0 for name in want} | (
+        {} if device_codebook else {name: want[name] for name in ("encode", "encode_batch")})
+    depths = [max_code_len(c.code_lengths) for c in read_container(dcz)[0].chunks]
+    if device_codebook:
+        groups = sum(1 for g in range(0, len(depths), local) if any(depths[g : g + local]))
+        for name in ("histogram_batch", "codebook_batch", "encode_batch"):
+            want[name] = local * groups
+    want["decode_batch"] = sum(1 for dep in depths if 0 < dep <= TABLE_BITS)
+    return want, sum(1 for dep in depths if dep > TABLE_BITS)
+
+
+def run_local_mesh(d: str, src: str) -> dict:
+    """Phase 13: the corpus through a local mesh of ``cuda:0`` twice, device
+    v2 and fast v2, against phase 7's and phase 6's files, with every count
+    set to 0 just before each leg and read just after; then the dry runs."""
+    from datacomp_tpu_torch import graft_entry, parallel
+    from datacomp_tpu_torch.config import load_config
+    from datacomp_tpu_torch.models import StageMetrics
+    from datacomp_tpu_torch.ops import COUNTERS, reset_counters
+    from datacomp_tpu_torch.services import gpu_service
+    from datacomp_tpu_torch.tools import cuda_ms
+
+    t_phase = time.perf_counter()
+    if load_config().device.fallback_on_error:
+        fail("device.fallback_on_error is on: a device error would be hidden")
+    mesh = parallel.make_mesh(devices=["cuda:0", "cuda:0"])
+    size, res = os.path.getsize(src), {"local_devices": [str(x) for x in mesh.local_devices]}
+    for leg, label, mode in (("dev2", "device codebook, v2", "device"),
+                             ("fast", "fast path (v2, host codebook)", "fast")):
+        cfg = load_config(compression={"chunk_size_mb": CHUNK >> 20, "format_version": 2,
+                                       "codebook_mode": mode})
+        dcz, out = os.path.join(d, f"{leg}-local.dcz"), os.path.join(d, f"{leg}-local.out")
+        stages = [StageMetrics(), StageMetrics()]
+        reset_counters()
+        gpu_service.host_encode_routes.reset()
+        gpu_service.host_decode_routes.reset()
+        t0 = time.perf_counter()
+        parallel.compress_multihost(src, dcz, cfg, mesh=mesh, metrics=stages[0])
+        t1 = time.perf_counter()
+        parallel.decompress_multihost(dcz, out, cfg, mesh=mesh, metrics=stages[1])
+        t2 = time.perf_counter()
+        launches = {name: k.value for name, (k, _) in COUNTERS.items()}
+        plain = sum(r.value for _, r in COUNTERS.values())
+        routes = (gpu_service.host_encode_routes.value, gpu_service.host_decode_routes.value)
+        if not filecmp.cmp(dcz, os.path.join(d, f"{leg}.dcz"), shallow=False):
+            fail(f"{label}, local mesh: the .dcz differs from the single-device file")
+        if not filecmp.cmp(src, out, shallow=False):
+            fail(f"{label}, local mesh: decompress did not restore the input")
+        want, want_routes = local_launches(dcz, mode == "device", len(mesh.local_devices))
+        got = {name: launches[name] for name in want}
+        if got != want or plain or routes != (0, want_routes):
+            fail(f"{label}, local mesh: launches {got}, plain calls {plain}, routes {routes}; "
+                 f"the container implies {want} and {want_routes} host decode routes")
+        res[leg] = {"compress_mbps": size / 1e6 / (t1 - t0),
+                    "decompress_mbps": size / 1e6 / (t2 - t1),
+                    "launches": {name: v for name, v in launches.items() if v},
+                    "host_decode_routes": routes[1]}
+        print(f"{label}, local mesh of {len(mesh.local_devices)} entries on cuda:0: .dcz "
+              f"byte-identical to the single-device file, corpus restored; compress "
+              f"{res[leg]['compress_mbps']} MB/s, decompress {res[leg]['decompress_mbps']} MB/s "
+              f"(wall); launches {got} as the container implies; host decode routes "
+              f"{routes[1]}\ncompress stages:\n{stages[0].summary()}\ndecompress stages:\n"
+              f"{stages[1].summary()}", flush=True)
+
+    t0 = time.perf_counter()
+    graft_entry.dryrun_multichip(torch.cuda.device_count())
+    res["dryrun_multichip_s"] = time.perf_counter() - t0
+    fn, args = graft_entry.entry()
+    got = fn(*args)
+    plain_fn, plain_args = graft_entry.entry(device="cpu")
+    if not all(torch.equal(a.cpu(), b) for a, b in zip(got, plain_fn(*plain_args))):
+        fail("entry(): the kernels' pipeline differs from its plain version")
+    res["entry_ms"] = cuda_ms(fn, [args], 50)
+    res["seconds"] = time.perf_counter() - t_phase
+    print(f"dryrun_multichip({torch.cuda.device_count()}) ok in {res['dryrun_multichip_s']} s; "
+          f"entry()'s K1 → K4 → K2 on 64 KiB equal to the plain versions, {res['entry_ms']} ms "
+          f"a call (events, back to back); phase 13 {res['seconds']} s", flush=True)
     return res
 
 
@@ -1330,6 +1438,8 @@ def main() -> int:
                    **run_sharded_cli(d, src)}
         print("sharded: " + json.dumps(sharded), flush=True)
         check_surfaces(d, src, hist, codec, cbook)
+        local = run_local_mesh(d, src)
+        print("local mesh: " + json.dumps(local), flush=True)
     jax_side = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "datacomp_tpu"))
     if jax_side:
         fail(f"jax or the JAX package was imported: {jax_side}")
@@ -1377,6 +1487,9 @@ def main() -> int:
             ("decode", fast4, "datacomp_tpu/services/tpu_service.py:745")):
         kernels.append({"name": f"{name}_batch", "route": "cuda", "source": source.format(name),
                         "replaces": replaces, "launches": leg["launches"][f"{name}_batch"],
+                        # phase 13's device v2 leg (fast v2's for K3)
+                        "local_mesh_launches": local["dev2" if name != "decode" else "fast"]
+                        ["launches"][f"{name}_batch"],
                         "rows": len(BATCH_VALID), **batched[name], "library_ms": None})
     print(card_line())
     print(json.dumps({"kernels": kernels}))

@@ -17,6 +17,7 @@ arguments, progress line and report).
     python -m datacomp_tpu_torch.cli config --init datacomp.toml
     python -m torch.distributed.run --standalone --nproc_per_node 2 \
         -m datacomp_tpu_torch.cli compress IN OUT.dcz --sharded --format 2
+    python -m datacomp_tpu_torch.cli compress IN OUT.dcz --sharded --format 2 --codebook-mode device
 
 The GPU service needs a CUDA device and raises without one.  The config's
 ``device`` section selects otherwise: ``DATACOMP_DEVICE_PLATFORM=cpu`` runs
@@ -118,31 +119,34 @@ def _add(a: dict, b: dict, sign: int = 1) -> dict:
 
 
 def _run_sharded(args, compressing: bool) -> int:
-    """``--sharded``: one rank a process, as ``torchrun`` starts them (a lone
-    process is a job of one rank).  The ranks share the file's chunks
-    round-robin (``parallel.compress_multihost`` /
-    ``decompress_multihost``); the config selects the backend as the
-    unsharded verbs do.  Rank 0 prints the report; with ``--stages`` it
-    prints every rank's stage breakdown and the kernel launches, plain
-    calls and host routes summed over the ranks."""
+    """``--sharded``: one rank a process and a GPU, as ``torchrun`` starts
+    them, or a lone process (a job of one rank) over every visible GPU
+    unless ``device.device_index`` names one.  The ranks share the file's
+    chunks round-robin, and a lone process's GPUs share its groups
+    (``parallel.compress_multihost`` / ``decompress_multihost``); the config
+    selects the backend as the unsharded verbs do.  Rank 0 prints the
+    report; with ``--stages`` it prints every rank's stage breakdown and the
+    kernel launches, plain calls and host routes summed over the ranks and
+    their GPUs."""
     import functools
 
     import torch.distributed as dist
 
     from .models import StageMetrics
     from .parallel import (
-        compress_multihost, decompress_multihost, initialize_distributed, make_mesh, rank_device,
+        compress_multihost, decompress_multihost, initialize_distributed, local_devices,
+        make_mesh,
     )
     from .services import CpuCompressionService
 
     cfg = _config(args)
-    device = rank_device(cfg)
+    devices = local_devices(cfg)
     owned = not dist.is_initialized()
-    initialize_distributed(device=device)
+    initialize_distributed(device=devices[0])
     try:
-        mesh = make_mesh(device=device)
+        mesh = make_mesh(devices=devices)
         verb = "compress" if compressing else "decompress"
-        if mesh.size == 1:
+        if mesh.size == 1 and len(devices) == 1:
             print(f"note: one local device — sharded {verb} degrades to the "
                   "batched single-device path")
         metrics = StageMetrics()
@@ -348,7 +352,9 @@ max-code-len = 0           # 0 = unlimited (v1) / auto (v2); "auto" = shallowest
 [datacomp.device]
 force-cpu = false          # the host codec instead of the GPU service
 platform = "any"           # any (a CUDA device) | cpu (the kernels' plain PyTorch versions)
-device-index = -1          # -1 = auto (cuda:LOCAL_RANK under torchrun, else cuda:0)
+device-index = -1          # -1 = auto (cuda:LOCAL_RANK under torchrun, else cuda:0;
+                           # a lone --sharded process: every visible card)
+fallback-on-error = false  # must stay false: no host redo of a failed GPU call (true is refused)
 parallel-chunks = 3
 batch-chunks = 0           # 0 = auto (4 on a CUDA device, 1 on the CPU), else 1..16
 
@@ -409,8 +415,8 @@ def build_parser() -> argparse.ArgumentParser:
     )
     sub = p.add_subparsers(dest="command", required=True)
     sharded_help = ("share the file's chunks among the ranks of a torchrun job, one "
-                    "GPU a rank (cuda:LOCAL_RANK unless device.device_index is set); "
-                    "a lone process is a job of one rank")
+                    "GPU a rank (cuda:LOCAL_RANK unless device.device_index is set), "
+                    "or among every visible GPU of a lone process")
 
     def common(sp, output=True):
         sp.add_argument("input")

@@ -4,14 +4,18 @@ The ``compression``, ``device``, ``benchmark``, ``logging`` and ``output``
 sections, the sources and the ``DATACOMP_<SECTION>_<KEY>`` variables are
 those of ``datacomp_tpu/config.py``, so one setting gives both packages the
 same ``.dcz`` bytes.  Each section keeps only the fields the port reads.
-No TPU knob comes across (``histogram_backend``, ``fallback_on_error``,
-``auto_detect``), nor the fields that the JAX package keeps for the
-reference's sake and reads nowhere: ``io_buffer_size_kb``,
+Two of the JAX service's selection rules are read without a field of their
+own: ``device.auto_detect = false`` sets ``force_cpu`` (the host codec by
+choice), and ``device.fallback_on_error`` stays False by default (True in
+the JAX package), because the port never redoes a failed device operation
+on the host: the GPU service refuses a config that sets it.  No TPU knob
+comes across (``histogram_backend``), nor the fields that the JAX package
+keeps for the reference's sake and reads nowhere: ``io_buffer_size_kb``,
 ``chunking_threshold_mb``, ``benchmark.output_format`` (``bench
 --format-out`` chooses the format) and the output section's
 ``default_directory``, ``compressed_extension`` and ``keep_original``.
 Unknown keys in a file or the environment are ignored, so the JAX
-package's config files load unchanged.
+package's config files load.
 
 Config sources, in override order (lowest → highest):
 1. built-in defaults below,
@@ -61,6 +65,8 @@ class DeviceConfig:
     force_cpu: bool = False  # the host codec instead of the GPU service
     platform: str = "any"  # "cpu" = the kernels' plain versions; else CUDA
     device_index: int = -1  # -1 = auto
+    # read only to be refused: the port has no host redo of a failed device call
+    fallback_on_error: bool = False
     # chunks in flight at once (pipeline workers: host prepass overlaps device)
     parallel_chunks: int = 3
     # chunks a device call takes, on both directions (one launch of each
@@ -181,10 +187,28 @@ def load_config(path: Optional[str] = None, **overrides) -> AppConfig:
         if name in overrides and isinstance(overrides[name], dict):
             section = _apply_section(section, overrides[name])
         sections[name] = section
+    if not _auto_detect(file_data.get("device"), overrides.get("device")):
+        sections["device"] = replace(sections["device"], force_cpu=True)
 
     cfg = AppConfig(**sections)
     _validate(cfg)
     return cfg
+
+
+def _auto_detect(file_section, override_section) -> bool:
+    """The JAX package's ``device.auto_detect`` through the same sources
+    (file, ``DATACOMP_DEVICE_AUTO_DETECT``, overrides); False selects the
+    host codec, which the port spells ``force_cpu``."""
+    value = True
+    env = {"auto_detect": os.environ.get("DATACOMP_DEVICE_AUTO_DETECT")}
+    for source in (file_section, env, override_section):
+        if not isinstance(source, dict):
+            continue
+        for key in ("auto-detect", "auto_detect"):
+            v = source.get(key)
+            if v is not None:
+                value = _coerce(v, bool) if isinstance(v, str) else bool(v)
+    return value
 
 
 def _validate(cfg: AppConfig) -> None:

@@ -6,6 +6,7 @@ from .huffman import (
     ALPHABET_SIZE,
     AUTO_CAP,
     MAX_CODE_LEN,
+    CorruptChunkError,
     build_code_lengths,
     build_codebook,
     canonical_codes_from_lengths,

@@ -20,7 +20,7 @@ from __future__ import annotations
 
 import numpy as np
 
-from .huffman import ALPHABET_SIZE, MAX_CODE_LEN
+from .huffman import ALPHABET_SIZE, MAX_CODE_LEN, CorruptChunkError
 
 
 def symbol_bit_lengths(data: np.ndarray, lengths: np.ndarray) -> np.ndarray:
@@ -106,7 +106,7 @@ def decode_bitstream_py(payload: bytes, n_symbols: int, lengths: np.ndarray) -> 
         return np.zeros(0, dtype=np.uint8)
     t = CanonicalDecodeTables(lengths)
     if t.max_len == 0:
-        raise ValueError("no symbols in codebook but n_symbols > 0")
+        raise CorruptChunkError("no symbols in codebook but n_symbols > 0")
     buf = payload + b"\x00" * 8  # slack so window reads never run off the end
     out = np.empty(n_symbols, dtype=np.uint8)
     first = t.first
@@ -127,5 +127,5 @@ def decode_bitstream_py(payload: bytes, n_symbols: int, lengths: np.ndarray) -> 
                 pos += ln
                 break
         else:
-            raise ValueError(f"invalid Huffman code at bit {pos}")
+            raise CorruptChunkError(f"invalid Huffman code at bit {pos}")
     return out

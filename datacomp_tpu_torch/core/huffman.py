@@ -37,6 +37,12 @@ ALPHABET_SIZE = 256
 MAX_CODE_LEN = 32
 
 
+class CorruptChunkError(ValueError):
+    """A chunk's stored data does not decode: a stream that holds no code of
+    its codebook, or a code-length table that is no prefix code.  Deep
+    verify reads it as a corrupt file; every other error propagates."""
+
+
 # ---------------------------------------------------------------------------
 # Java PriorityQueue replica
 # ---------------------------------------------------------------------------

@@ -138,9 +138,12 @@ def library() -> ctypes.CDLL:
     with _lock:
         if _lib is None:
             path = library_path()
-            if not os.path.exists(path):
-                _build(path)
-            lib = ctypes.CDLL(path)
+            try:  # a missing nvcc or an unloadable library: RuntimeError, as nvcc's failure
+                if not os.path.exists(path):
+                    _build(path)
+                lib = ctypes.CDLL(path)
+            except OSError as e:
+                raise RuntimeError(f"the kernel library {path} did not build or load: {e}") from e
             for name, argtypes in _SIGNATURES.items():
                 fn = getattr(lib, name)
                 fn.argtypes = argtypes

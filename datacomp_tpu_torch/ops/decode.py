@@ -23,6 +23,7 @@ import numpy as np
 import torch
 
 from ..core.bitio import CanonicalDecodeTables
+from ..core.huffman import CorruptChunkError, validate_lengths
 
 from . import _build
 
@@ -44,8 +45,11 @@ def build_decode_tables(lengths: np.ndarray, table_bits: int = TABLE_BITS):
     * ``adj`` int32[16] — ``base[l] - first[l]`` (canonical index offset);
     * ``sym`` int32[256] — symbols sorted by (length, symbol), zero-padded.
 
-    Raises ValueError when any code exceeds ``table_bits``.
+    Raises :class:`CorruptChunkError` when the lengths are no prefix code,
+    and ValueError when any code exceeds ``table_bits``.
     """
+    if not validate_lengths(lengths):
+        raise CorruptChunkError("the code-length table is no prefix code")
     t = CanonicalDecodeTables(lengths)
     if t.max_len > table_bits:
         raise ValueError(f"max code length {t.max_len} > table bits {table_bits}")

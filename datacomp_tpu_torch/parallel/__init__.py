@@ -1,8 +1,9 @@
-"""Several GPUs and hosts on ``torch.distributed``: the ranks (one process a
-GPU), the sharded compress and decompress steps, and file compress and
-decompress across ranks (counterpart of ``datacomp_tpu/parallel``)."""
+"""Several GPUs and hosts: the ranks of a ``torch.distributed`` job (one
+process a GPU) or the GPUs of one process, the sharded compress and
+decompress steps over them, and file compress and decompress across them
+(counterpart of ``datacomp_tpu/parallel``)."""
 
-from .mesh import Mesh, make_mesh, rank_device
+from .mesh import Mesh, local_devices, make_mesh, rank_device
 from .sharded import (
     check_decompress_step_params,
     make_sharded_compress_step,
@@ -26,6 +27,7 @@ from .multihost import (
 
 __all__ = [
     "Mesh",
+    "local_devices",
     "make_mesh",
     "rank_device",
     "check_decompress_step_params",

@@ -1,24 +1,29 @@
-"""Compress and decompress one file across the ranks of a job (counterpart
-of ``datacomp_tpu/parallel/multihost.py``).
+"""Compress and decompress one file across the ranks of a job and the
+devices of a process (counterpart of ``datacomp_tpu/parallel/multihost.py``).
 
-Every rank (one process, one GPU, as ``torchrun`` starts them):
+Every rank (one process; one GPU a rank under ``torchrun``, every visible
+GPU in a lone process):
 
 1. reads its round-robin stripe of the file's chunks (the input is visible
    to every rank: one host, or a shared filesystem);
-2. encodes the stripe through its codec's ``encode_chunk_batch`` in groups
-   of ``batch_chunks`` (the GPU codec: one launch of each batched kernel a
-   group), spilling payloads to a file of its own;
+2. encodes the stripe, spilling payloads to a file of its own: through its
+   codec's ``encode_chunk_batch`` in groups of ``batch_chunks`` (the GPU
+   codec: one launch of each batched kernel a group), or, with several
+   local devices in device-codebook v2, in groups of one chunk a device
+   through the sharded compress step (:func:`_encode_group_local`);
 3. all-gathers every chunk's metadata (sizes, SHA-256, code lengths, gap
    arrays) over the gloo group, derives every chunk's offset identically
    (an exclusive scan in chunk order), and ``pwrite``s its payloads there;
    rank 0 appends the footer after a barrier.
 
 Decompress needs no collective beyond two barriers: each rank decodes its
-stripe through ``decode_chunk_batch`` and writes the bytes at their recorded
-offsets.  No device collective runs inside the loop: stripes differ in
+stripe through ``decode_chunk_batch`` (with several local devices, a v2
+file's groups through the sharded decompress step,
+:func:`_decode_group_local`) and writes the bytes at their recorded
+offsets.  No collective across ranks runs inside the loop: stripes differ in
 length and raw-stored chunks skip the device, so a collective a group would
-leave ranks waiting on each other.  The numpy helpers are this package's own
-copies of the JAX module's.
+leave ranks waiting on each other; the local paths run only in a job of one
+rank.  The numpy helpers are this package's own copies of the JAX module's.
 """
 
 from __future__ import annotations
@@ -34,7 +39,7 @@ import torch.distributed as dist
 
 from ..core import container as ct
 from ..utils.checksum import sha256_digest
-from .mesh import Mesh, make_mesh, rank_device
+from .mesh import Mesh, local_devices, make_mesh, rank_device
 
 
 def initialize_distributed(
@@ -202,7 +207,85 @@ def _codec(cfg, backend: str, mesh: Mesh):
 
 
 def _default_mesh(cfg, backend: str) -> Mesh:
-    return make_mesh(device="cpu" if backend == "cpu" else rank_device(cfg))
+    return make_mesh(devices=("cpu",) if backend == "cpu" else local_devices(cfg))
+
+
+def _encode_group_local(step, codec, datas, metrics, mesh: Mesh) -> list:
+    """Encode up to one chunk a local device through the sharded compress
+    step (``_encode_group_mesh``, ``multihost.py:163-227``).
+
+    The host prepass (SHA-256, host histogram, raw-store decision) runs for
+    each chunk exactly as the single-device codec's does
+    (``GpuChunkCodec._host_prepass``), so empty and raw-stored chunks skip
+    the step and every byte equals the single-device service's; the other
+    chunks take one device each, in order, and a device without one gets a
+    row of ``valid_len`` 0, which encodes to nothing.  Each device's row
+    comes back in one copy: its total bits, lengths, gap array and live
+    words, sized by the prepass's optimal bits as the single-device path
+    sizes them, and its depth and total are checked as the single-device
+    path checks them (a total other than the prepass's raises).  The JAX
+    step's device-side raw store (``multihost.py:211-216``) is not copied:
+    the prepass has already stored raw every chunk whose optimal code needs
+    8 bits a byte, so that branch could only turn a wrong total into a
+    different file."""
+    from ..models import Stage
+    from ..services.gpu_service import _fetch
+
+    results: list = [None] * len(datas)
+    live = []  # (index, data, sha, opt_bits)
+    for i, data in enumerate(datas):
+        sha, _lengths, _codes, opt_bits, finished = codec._host_prepass(data, metrics)
+        if finished is not None:
+            results[i] = finished
+        else:
+            live.append((i, data, sha, opt_bits))
+    if not live:
+        return results
+    devices = mesh.local_devices
+    empty = np.zeros(0, np.uint8)
+    rows = [m[1] for m in live] + [empty] * (len(devices) - len(live))
+    with metrics.timed(Stage.ENCODING, sum(m[1].size for m in live)):
+        shards = [codec._upload([row], dev) for row, dev in zip(rows, devices)]
+        outs = step(shards, [row.size for row in rows], len(devices) * mesh.size)
+        for (i, data, sha, opt_bits), (_, lengths, _, words, total_bits, gaps, _, _) in zip(
+                live, outs):
+            nsub = (data.size + codec.subblock - 1) // codec.subblock
+            flat = _fetch([total_bits, lengths[0], gaps[0, :nsub],
+                           words[0, : codec._live_words(opt_bits)]])
+            results[i] = codec._v2_chunk(flat, nsub, sha, opt_bits)
+    return results
+
+
+def _decode_group_local(step, codec, header, payloads, metas, metrics, mesh: Mesh) -> list:
+    """Decode up to one chunk a local device through the sharded decompress
+    step (``_decode_group_mesh``, ``multihost.py:402-483``).  Routing is the
+    single-device codec's: raw-stored chunks pass through, and the chunks it
+    sends to the host (v1, codes deeper than 16 bits) take its counted host
+    route (``GpuChunkCodec.decode_chunk``); the rest take one device each,
+    in order, their stream, gap array and tables in one copy up and their
+    bytes in one copy back.  A device without a chunk launches nothing."""
+    from ..models import Stage
+    from ..ops import build_decode_tables
+    from ..services.gpu_service import _decodes_on_device
+    from .sharded import check_decompress_step_params
+
+    live = [j for j, m in enumerate(metas) if _decodes_on_device(m, header)]
+    results = [None if j in live else codec.decode_chunk(p, m, header, metrics)
+               for j, (p, m) in enumerate(zip(payloads, metas))]
+    if not live:
+        return results
+    s = header.subblock_symbols
+    check_decompress_step_params([metas[j].code_lengths for j in live], s)
+    with metrics.timed(Stage.HUFFMAN_TREE_BUILD):
+        tables = [build_decode_tables(metas[j].code_lengths) for j in live]
+    with metrics.timed(Stage.DECODING, sum(metas[j].original_size for j in live)):
+        parts = [(*codec._decode_inputs([payloads[j]], [metas[j]], [table], dev),
+                  [metas[j].original_size])
+                 for j, table, dev in zip(live, tables, mesh.local_devices)]
+        outs = step(*zip(*parts))
+        for j, out in zip(live, outs):
+            results[j] = out.cpu().numpy()
+    return results
 
 
 def compress_multihost(
@@ -216,7 +299,11 @@ def compress_multihost(
     groups run each batched kernel once; ``"cpu"``: the host codec), the
     chunks' metadata is all-gathered over the gloo group, every rank writes
     its payloads at their global offsets, and rank 0 appends the footer.
-    The output equals the single-process pipeline's byte for byte.
+    With several local devices, the GPU backend and device-codebook v2 (the
+    condition of ``multihost.py:294-300``), the stripe goes instead in
+    groups of one chunk a device through the sharded compress step
+    (:func:`_encode_group_local`).  The output equals the single-process,
+    single-device pipeline's byte for byte.
 
     Every rank of the mesh calls this together.  Payloads spill to a file of
     the rank's own beside the output while the stripe encodes, so memory
@@ -239,7 +326,13 @@ def compress_multihost(
     local = ChunkAssignment(rank, ranks, num_chunks).local_chunks()
     L = (num_chunks + ranks - 1) // ranks  # the padded stripe length
     codec = _codec(cfg, backend, mesh)
-    group = max(1, codec.batch_chunks)
+    on_mesh = len(mesh.local_devices) > 1 and backend == "gpu" and (
+        cfg.compression.codebook_mode == "device" and version >= ct.VERSION_V2)
+    if on_mesh:
+        from .sharded import make_sharded_compress_step
+
+        step = make_sharded_compress_step(mesh, chunk_size, subblock)
+    group = len(mesh.local_devices) if on_mesh else max(1, codec.batch_chunks)
 
     spill_path = f"{output_path}.spill{rank}"
     sizes = np.zeros(L, np.int64)
@@ -259,7 +352,10 @@ def compress_multihost(
                     with metrics.timed(Stage.FILE_IO, n):
                         f.seek(off)
                         datas.append(np.frombuffer(f.read(n), dtype=np.uint8))
-                encs = codec.encode_chunk_batch(datas, metrics)
+                if on_mesh:
+                    encs = _encode_group_local(step, codec, datas, metrics, mesh)
+                else:
+                    encs = codec.encode_chunk_batch(datas, metrics)
                 for k, enc in zip(range(g0, g0 + len(gidx)), encs):
                     with metrics.timed(Stage.FILE_IO, len(enc.payload)):
                         spill.write(enc.payload)
@@ -321,7 +417,11 @@ def decompress_multihost(
     raw-stored chunks pass through, v1 chunks and codes deeper than 16 bits
     take the counted host route, the rest one batched K3 launch a group),
     checks each chunk's SHA-256 and ``pwrite``s it at its original offset.
-    Every rank of the mesh calls this together."""
+    With several local devices and the GPU backend, a v2 file with
+    sub-blocks (``multihost.py:532-539``) goes instead in groups of one
+    chunk a device, its device members through the sharded decompress step
+    (:func:`_decode_group_local`).  Every rank of the mesh calls this
+    together."""
     from ..config import load_config
     from ..models import Stage, StageMetrics
     from ..utils.checksum import compute_sha256
@@ -333,7 +433,13 @@ def decompress_multihost(
         header, data_start = ct.read_container(input_path)
     local = ChunkAssignment(mesh.rank, mesh.size, header.num_chunks).local_chunks()
     codec = _codec(cfg, backend, mesh)
-    group = max(1, codec.batch_chunks)
+    on_mesh = len(mesh.local_devices) > 1 and backend == "gpu" and (
+        header.version >= ct.VERSION_V2 and header.subblock_symbols > 0)
+    if on_mesh:
+        from .sharded import make_sharded_decompress_step
+
+        step = make_sharded_decompress_step(mesh, header.subblock_symbols)
+    group = len(mesh.local_devices) if on_mesh else max(1, codec.batch_chunks)
 
     if mesh.rank == 0:
         with open(output_path, "wb") as f:
@@ -352,7 +458,11 @@ def decompress_multihost(
                 if len(p) != m.compressed_size:
                     raise IOError(f"short read on chunk {m.index}")
                 payloads.append(p)
-            datas = codec.decode_chunk_batch(payloads, gmetas, header, metrics)
+            if on_mesh:
+                datas = _decode_group_local(step, codec, header, payloads, gmetas, metrics,
+                                            mesh)
+            else:
+                datas = codec.decode_chunk_batch(payloads, gmetas, header, metrics)
             for m, data in zip(gmetas, datas):
                 if data.size != m.original_size:
                     raise IOError(f"size mismatch in chunk {m.index}")

@@ -1,9 +1,10 @@
-"""Service layer of the port: the GPU service, the host codec it falls back
-to only when asked (``force_cpu``), the shared pipeline and the factory."""
+"""Service layer of the port: the GPU service, the host codec (selected by
+``force_cpu``; it never redoes a failed GPU operation), the shared pipeline
+and the factories."""
 
 from .base import CompressionService, FrequencyService
 from .cpu_service import CpuCompressionService, CpuFrequencyService
-from .factory import create_compression_service
+from .factory import create_compression_service, create_frequency_service
 from .gpu_service import (
     GpuChunkCodec,
     GpuCompressionService,
@@ -19,6 +20,7 @@ __all__ = [
     "CpuCompressionService",
     "CpuFrequencyService",
     "create_compression_service",
+    "create_frequency_service",
     "GpuChunkCodec",
     "GpuCompressionService",
     "GpuFrequencyService",

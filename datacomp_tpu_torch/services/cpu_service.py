@@ -105,19 +105,22 @@ class CpuChunkCodec(ChunkCodec):
                 return np.frombuffer(payload, dtype=np.uint8)
         with metrics.timed(Stage.HUFFMAN_TREE_BUILD):
             if not huffman.validate_lengths(meta.code_lengths):
-                raise IOError(f"invalid code-length table in chunk {meta.index}")
+                raise huffman.CorruptChunkError(f"invalid code-length table in chunk {meta.index}")
         with metrics.timed(Stage.DECODING, meta.original_size):
             if native.is_available():
-                if (
-                    meta.gap_bits is not None
-                    and meta.gap_bits.size > 0
-                    and header.subblock_symbols > 0
-                ):
-                    return native.decode_gaps(
-                        payload, meta.original_size, meta.code_lengths,
-                        meta.gap_bits, header.subblock_symbols,
-                    )
-                return native.decode(payload, meta.original_size, meta.code_lengths)
+                try:  # the native decoder's ValueError is its non-zero rc: a corrupt stream
+                    if (
+                        meta.gap_bits is not None
+                        and meta.gap_bits.size > 0
+                        and header.subblock_symbols > 0
+                    ):
+                        return native.decode_gaps(
+                            payload, meta.original_size, meta.code_lengths,
+                            meta.gap_bits, header.subblock_symbols,
+                        )
+                    return native.decode(payload, meta.original_size, meta.code_lengths)
+                except ValueError as e:
+                    raise huffman.CorruptChunkError(str(e)) from e
             return bitio.decode_bitstream_py(payload, meta.original_size, meta.code_lengths)
 
 

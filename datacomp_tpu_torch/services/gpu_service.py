@@ -23,9 +23,11 @@ Port of ``datacomp_tpu/services/tpu_service.py`` to PyTorch and CUDA:
   ``encode_batch``, ``decode_batch``), with one upload and one copy back, as
   ``TpuChunkCodec.encode_chunk_batch`` and ``decode_chunk_batch`` do.
 
-Unlike the JAX service there is no catch-all fallback to the CPU: a device
-error propagates.  The device is ``config.device.platform`` unless the caller
-names one; ``"cpu"`` runs the kernels' plain PyTorch versions.
+Unlike the JAX service, whose ``device.fallback_on_error`` is on by default,
+there is no fallback to the CPU: a device error propagates, and a config
+that sets ``fallback_on_error`` is refused.  The device is
+``config.device.platform`` unless the caller names one; ``"cpu"`` runs the
+kernels' plain PyTorch versions.
 """
 
 from __future__ import annotations
@@ -296,14 +298,16 @@ class GpuChunkCodec(ChunkCodec):
             return True
         return False
 
-    def _upload(self, datas: list) -> torch.Tensor:
+    def _upload(self, datas: list, device=None) -> torch.Tensor:
         """The chunks as the rows of one uint8[len(datas), padded_size]
-        device tensor: each copied into its row, the row's tail zeroed on the
-        device.  A group's rows are its live members only: the JAX service
-        pads a group with empty chunks up to ``batch_chunks`` rows so that
-        one static executable serves every group, and an empty row encodes to
-        nothing, so leaving them out changes no byte."""
-        x = torch.empty((len(datas), self.padded_size), dtype=torch.uint8, device=self.device)
+        tensor on ``device`` (by default the codec's): each copied into its
+        row, the row's tail zeroed on the device.  A group's rows are its
+        live members only: the JAX service pads a group with empty chunks up
+        to ``batch_chunks`` rows so that one static executable serves every
+        group, and an empty row encodes to nothing, so leaving them out
+        changes no byte."""
+        x = torch.empty((len(datas), self.padded_size), dtype=torch.uint8,
+                        device=device or self.device)
         for row, data in zip(x, datas):
             row[: data.size].copy_(_host_tensor(data))
             row[data.size :].zero_()
@@ -353,14 +357,19 @@ class GpuChunkCodec(ChunkCodec):
             x = self._upload([data])[0]
             lens_t, codes_t = codebook(histogram(x, n))
             words, total_bits, gaps = encode(x, n, lens_t, codes_t, self.out_words, self.subblock)
-            flat = _fetch([total_bits, lens_t, gaps[:nsub], words[:nw]])
-            tb = int(flat[:2].view(np.int64)[0])
-            lengths = flat[2:258].copy()
-            _check_depth(lengths)
-            self._check_total(tb, opt_bits)
-            gap_bits = flat[258 : 258 + nsub].view(np.uint32).copy()
-            payload = words_to_bytes(flat[258 + nsub :].view(np.uint32), tb)
-        return EncodedChunk(payload, lengths, sha, gap_bits)
+            return self._v2_chunk(_fetch([total_bits, lens_t, gaps[:nsub], words[:nw]]), nsub,
+                                  sha, opt_bits)
+
+    def _v2_chunk(self, flat: np.ndarray, nsub: int, sha: bytes, opt_bits: int) -> EncodedChunk:
+        """A device-codebook v2 chunk from its one copy back (``flat``, int32:
+        total bits, lengths, ``nsub`` gap entries, live words), its depth and
+        total checked."""
+        tb = int(flat[:2].view(np.int64)[0])
+        lengths = flat[2:258].copy()
+        _check_depth(lengths)
+        self._check_total(tb, opt_bits)
+        return EncodedChunk(words_to_bytes(flat[258 + nsub :].view(np.uint32), tb), lengths, sha,
+                            flat[258 : 258 + nsub].view(np.uint32).copy())
 
     def _encode_device_codebook_v1(self, data, sha, metrics) -> EncodedChunk:
         """K1 → K4 on the device, one copy back of the histogram and lengths
@@ -561,35 +570,48 @@ class GpuChunkCodec(ChunkCodec):
     def _decode_group(self, payloads, metas, header, metrics: StageMetrics) -> list:
         """Batched K3: the members' streams, gap arrays and tables go up in
         one copy, and their outputs come back in one."""
-        rows = len(metas)
         with metrics.timed(Stage.HUFFMAN_TREE_BUILD):
             tables = [build_decode_tables(m.code_lengths) for m in metas]
         n_outs = [m.original_size for m in metas]
         with metrics.timed(Stage.DECODING, sum(n_outs)):
-            words = [payload_to_words(p).view(np.int32) for p in payloads]
-            gaps = [m.gap_bits.astype(np.uint32).view(np.int32) for m in metas]
-            word_offsets = np.cumsum([0] + [w.size for w in words]).tolist()
-            gap_offsets = np.cumsum([0] + [g.size for g in gaps]).tolist()
-            limits, adj, sym = (np.stack([t[k] for t in tables]).astype(np.int32)
-                                for k in range(3))
-            host = np.concatenate(words + gaps + [limits.ravel(), adj.ravel(), sym.ravel()])
-            t = _host_tensor(host).to(self.device)
-            w, g = word_offsets[-1], gap_offsets[-1]
-            pieces = torch.split(t, [w, g, TABLE_BITS * rows, TABLE_BITS * rows, 256 * rows])
-            out = decode_batch(
-                pieces[0].view(torch.uint32), word_offsets, pieces[1].view(torch.uint32),
-                gap_offsets, pieces[2].view(rows, TABLE_BITS), pieces[3].view(rows, TABLE_BITS),
-                pieces[4].view(rows, 256), header.subblock_symbols, n_outs,
-            ).cpu().numpy()
+            args = self._decode_inputs(payloads, metas, tables, self.device)
+            out = decode_batch(*args, header.subblock_symbols, n_outs).cpu().numpy()
         return _split(out, n_outs)
+
+    @staticmethod
+    def _decode_inputs(payloads, metas, tables, device) -> tuple:
+        """The rows' streams, gap arrays and decode tables on ``device``, in
+        one copy: ``(words, word_offsets, gaps, gap_offsets, limits, adj,
+        sym)`` as :func:`ops.decode_batch` takes them."""
+        rows = len(metas)
+        words = [payload_to_words(p).view(np.int32) for p in payloads]
+        gaps = [m.gap_bits.astype(np.uint32).view(np.int32) for m in metas]
+        word_offsets = np.cumsum([0] + [w.size for w in words]).tolist()
+        gap_offsets = np.cumsum([0] + [g.size for g in gaps]).tolist()
+        limits, adj, sym = (np.stack([t[k] for t in tables]).astype(np.int32) for k in range(3))
+        host = np.concatenate(words + gaps + [limits.ravel(), adj.ravel(), sym.ravel()])
+        t = _host_tensor(host).to(device)
+        w, g = word_offsets[-1], gap_offsets[-1]
+        pieces = torch.split(t, [w, g, TABLE_BITS * rows, TABLE_BITS * rows, 256 * rows])
+        return (pieces[0].view(torch.uint32), word_offsets, pieces[1].view(torch.uint32),
+                gap_offsets, pieces[2].view(rows, TABLE_BITS), pieces[3].view(rows, TABLE_BITS),
+                pieces[4].view(rows, 256))
 
 
 class GpuCompressionService(CompressionService):
     """Compression service on one CUDA device (or, with ``device="cpu"``, on
-    the kernels' plain versions).  Errors propagate: there is no fallback."""
+    the kernels' plain versions).  Errors propagate: there is no fallback,
+    and a config whose ``device.fallback_on_error`` asks for the JAX
+    service's host redo (``tpu_service.py:866-888``) is refused."""
 
     def __init__(self, config: Optional[AppConfig] = None, device: Optional[str] = None):
         self.config = config or load_config()
+        if self.config.device.fallback_on_error:
+            raise ValueError(
+                "device.fallback-on-error = true is not supported: the GPU service never "
+                "redoes a failed operation on the host; set it to false, or set "
+                "device.force-cpu (DATACOMP_DEVICE_FORCE_CPU=1) for the host codec"
+            )
         self.device = pick_device(
             device or self.config.device.platform, self.config.device.device_index
         )

@@ -32,6 +32,7 @@ import numpy as np
 
 from ..config import AppConfig
 from ..core import container as ct
+from ..core.huffman import CorruptChunkError
 from ..models import Stage, StageMetrics
 from ..utils.checksum import compute_sha256, sha256_digest
 from .base import ProgressCallback
@@ -485,14 +486,15 @@ class ChunkedPipeline:
 
                 def check(c: ct.ChunkMeta) -> bool:
                     payload = os.pread(fd, c.compressed_size, data_start + c.compressed_offset)
-                    data = self.codec.decode_chunk(payload, c, header, metrics)
+                    try:
+                        data = self.codec.decode_chunk(payload, c, header, metrics)
+                    except CorruptChunkError:  # the JAX copy catches every Exception
+                        return False
                     return compute_sha256(data) == c.sha256
 
                 futures = [self._executor.submit(check, c) for c in header.chunks]
-                try:
-                    if not all(fut.result() for fut in futures):
-                        return False
-                except Exception:  # noqa: BLE001 — undecodable ⇒ corrupt
+                results = [fut.result() for fut in futures]  # a device error propagates
+                if not all(results):
                     return False
         return True
 

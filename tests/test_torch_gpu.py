@@ -18,7 +18,10 @@ buffers), with a 1-symbol last sub-block, and on random streams (no fault,
 mid-word and ``out_words`` cut inside a tile.  The sharded compress step of
 ``datacomp_tpu_torch.parallel`` at world size 1, its all-gather on NCCL,
 against the batched kernels and the plain versions (1, 4, 16 and 17 rows),
-and ``pick_device`` with ``LOCAL_RANK`` past the device count.  The
+and ``pick_device`` with ``LOCAL_RANK`` past the device count.  The local
+level of the mesh on one card twice (``[cuda:0, cuda:0]``): the sharded
+compress step against the batched kernels, the decompress step's round
+trip, and the file path's ``.dcz`` against the single-card service's.  The
 benchmark module on the card: the kernel bench's rows exact with positive
 times and bounds, the batch benches, the suite's GPU row named after the
 card, the corpus bench's ``gpu`` sizes equal to its ``cpu`` ones, and
@@ -655,6 +658,77 @@ def test_sharded_step_on_nccl_matches_batched_kernels_and_plain(nccl_mesh, rows)
         nccl_mesh, streams, gaps_h[keep], lengths[keep], S, [valid[b] for b in keep])
     for b, row in zip(keep, restored):
         assert np.array_equal(row.cpu().numpy(), data[b, : valid[b]])
+
+
+@pytest.mark.parametrize("rows", [2, 8, 34])  # 17 rows a device: two launches each
+def test_local_step_on_one_card_twice_matches_batched_kernels(cuda, rows):
+    """The sharded compress step over the local mesh ``[cuda:0, cuda:0]``
+    (half the rows each) equals K1 → K4 → K2 through their batched entry
+    points on all the rows, its offsets the host's cumsum of the sizes, and
+    the decompress step over the same mesh restores the rows it can."""
+    from datacomp_tpu_torch import parallel
+
+    data, valid = _batch_rows(rows)
+    n, S, half = data.shape[1], 512, rows // 2
+    x = torch.from_numpy(data).to(cuda)
+    mesh = parallel.make_mesh(devices=["cuda:0", "cuda:0"])
+    ops.reset_counters()
+    outs = parallel.make_sharded_compress_step(mesh, n, S)([x[:half], x[half:]], valid, rows)
+    launches = {k: c[0].value for k, c in ops.COUNTERS.items()}
+    spans = 2 * -(-half // ops.MAX_ROWS)
+    assert all(launches[f"{k}_batch"] == spans for k in ("histogram", "codebook", "encode"))
+    assert not any(c[1].value for c in ops.COUNTERS.values())  # no plain version
+    got = [torch.cat([o[k] for o in outs]) for k in range(8)]
+    out_words = (9 * n + 31) // 32 + 2
+    for s in range(0, rows, ops.MAX_ROWS):
+        r, v = slice(s, s + ops.MAX_ROWS), valid[s : s + ops.MAX_ROWS]
+        kh = ops.histogram_batch(x[r], v)
+        kl, kc = ops.codebook_batch(kh)
+        kernel = (kh, kl, kc, *ops.encode_batch(x[r], v, kl, kc, out_words, S))
+        for mine, k in zip(got[:6], kernel):
+            assert _same(mine[r], k)
+    sizes = (got[4].cpu().numpy() + 7) // 8
+    assert got[6].cpu().tolist() == sizes.tolist()
+    assert got[7].cpu().tolist() == (np.cumsum(sizes) - sizes).tolist()
+
+    lengths = got[1].cpu().numpy()
+    keep = [b for b in range(rows) if 0 < ops.max_code_len(lengths[b]) <= ops.TABLE_BITS]
+    keep = keep[: len(keep) // 2 * 2]  # the rows share the two devices evenly
+    words_h, totals_h, gaps_h = (t.cpu().numpy() for t in got[3:6])
+    streams = [ops.payload_to_words(ops.words_to_bytes(words_h[b], int(totals_h[b])))
+               for b in keep]
+    restored = parallel.sharded_decompress_arrays(
+        mesh, streams, gaps_h[keep], lengths[keep], S, [valid[b] for b in keep])
+    for b, row in zip(keep, restored):
+        assert row.device.type == "cuda" and np.array_equal(row.cpu().numpy(), data[b, : valid[b]])
+
+
+@pytest.mark.parametrize("mode", ["device", "fast"])
+def test_local_file_path_on_one_card_twice(cuda, tmp_path, mode):
+    """``compress_multihost`` / ``decompress_multihost`` over ``[cuda:0,
+    cuda:0]``: the single-card service's ``.dcz`` (device v2 through the
+    sharded step, fast v2 through the codec), and the input restored through
+    the local decompress path."""
+    from datacomp_tpu_torch import parallel
+
+    src = tmp_path / "in.bin"
+    src.write_bytes(generate_bytes("text", 1 << 20) + generate_bytes("random", 1 << 20)
+                    + generate_bytes("skewed", 1 << 20) + generate_bytes("compressible", 12345))
+    cfg = datacomp_tpu_torch.config.load_config(compression={
+        "chunk_size_mb": 1, "format_version": 2, "codebook_mode": mode})
+    with GpuCompressionService(cfg) as svc:
+        svc.compress(str(src), str(tmp_path / "one.dcz"))
+    mesh = parallel.make_mesh(devices=["cuda:0", "cuda:0"])
+    parallel.compress_multihost(str(src), str(tmp_path / "two.dcz"), cfg, mesh=mesh)
+    assert (tmp_path / "two.dcz").read_bytes() == (tmp_path / "one.dcz").read_bytes()
+    ops.reset_counters()
+    parallel.decompress_multihost(str(tmp_path / "two.dcz"), str(tmp_path / "two.out"), cfg,
+                                  mesh=mesh)
+    assert (tmp_path / "two.out").read_bytes() == src.read_bytes()
+    header, _ = read_container(str(tmp_path / "two.dcz"))
+    on_k3 = sum(1 for c in header.chunks if 0 < ops.max_code_len(c.code_lengths) <= 16)
+    assert ops.COUNTERS["decode_batch"][0].value == on_k3
+    assert not any(c[1].value for c in ops.COUNTERS.values())
 
 
 def test_pick_device_local_rank_past_the_count_raises(cuda, monkeypatch):

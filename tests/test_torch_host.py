@@ -91,6 +91,18 @@ def test_config_identical(monkeypatch):
     assert (p.benchmark.warmup_iterations, p.benchmark.detailed_profiling,
             p.output.verify_after_compress) == (1, True, False)
     assert p.compression.effective_max_code_len() == -1
+    # the device section: the fields the port has, read as the JAX package
+    # reads them, but for fallback_on_error's default (off in the port, on
+    # in the JAX package) and auto_detect, whose false the port reads as
+    # force_cpu
+    monkeypatch.setenv("DATACOMP_DEVICE_AUTO_DETECT", "false")
+    dev = {"batch_chunks": 4, "device_index": 1}
+    j, p = jconfig.load_config(device=dev), pconfig.load_config(device=dev)
+    mine = vars(p.device)
+    assert mine == {k: getattr(j.device, k) for k in mine} | {"fallback_on_error": False,
+                                                              "force_cpu": True}
+    assert (j.device.force_cpu, j.device.auto_detect, j.device.fallback_on_error) == (
+        False, False, True)
     with pytest.raises(ValueError, match="subblock-symbols"):
         pconfig.load_config(compression={"format_version": 2, "subblock_symbols": 100})
 

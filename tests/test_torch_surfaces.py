@@ -244,7 +244,10 @@ def test_config_template_round_trips(tmp_path, capsys):
     for name, section in vars(pconfig.AppConfig()).items():
         assert {k.replace("-", "_") for k in table[name]} == set(vars(section)), name
     assert "histogram-backend" not in pcli.TEMPLATE_TOML
-    assert "fallback-on-error" not in pcli.TEMPLATE_TOML
+    # fallback-on-error is read only to refuse true; auto-detect = false is
+    # read as force-cpu and has no key of its own
+    assert "fallback-on-error = false" in pcli.TEMPLATE_TOML
+    assert "auto-detect" not in pcli.TEMPLATE_TOML
     rc, _, err = run(["config", "--init", path], capsys)
     assert rc == 1 and "exists" in err
     assert run(["config", "--init", path, "--force"], capsys)[0] == 0
