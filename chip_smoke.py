@@ -35,8 +35,9 @@
    and 17.  No codec path calls them: their ``launches`` are the harness's,
    and ``codec_path_launches`` (0) those of phases 6-8.
 6. The fast path: ``bench.py``'s 128 MB mixed corpus (text, compressible,
-   skewed, random) through the port's CLI, ``compress --format 2
-   --codebook-mode fast --no-verify`` in 16 MiB chunks, then ``decompress``,
+   skewed, random; written by ``datacomp_tpu_torch.bench.write_corpus``)
+   through the port's CLI, ``compress --format 2 --codebook-mode fast
+   --no-verify`` in 16 MiB chunks, then ``decompress``,
    each with its stage breakdown.  The restored file equals the input, the
    ``.dcz`` equals the one the port's host codec (``CpuCompressionService``)
    writes, byte for byte, K2 and K3 ran once per chunk that is not stored
@@ -128,6 +129,19 @@
     ``graft_entry.entry()``'s pipeline on the card, equal to its plain
     version and timed by events.  The config's ``fallback_on_error`` is off,
     and nothing here sets it.
+14. The headline benchmark (``datacomp_tpu_torch.bench``, the port's root
+    ``bench.py``).  In this process, ``bench.run`` on the corpus at full size:
+    the ``cpu`` leg (host codec, v2) and the ``gpu`` leg (fast v2, 16 MiB
+    chunks, ``batch_chunks`` auto, a warm-up and 2 timed calls each way, the
+    link probed before and after), with the counts set to 0 just before and
+    read just after: the ``gpu`` leg's ``.dcz`` equals phase 6's and its
+    ratio phase 6's, K1 ran once (the service's probe), K2 and K3 as the
+    container implies at ``batch_chunks`` auto for each of the 3 compresses
+    and decompresses, and no plain version or host route ran.  Then
+    ``python -m datacomp_tpu_torch.bench`` once at ``BENCH_SIZE_MB=16``:
+    exit 0 and one JSON line with every key of the in-process line.  Both
+    lines are printed; the kernels line carries each kernel's
+    ``headline_launches``.
 
 Kernel, plain and library times are taken with CUDA events after a warm-up,
 cycling through copies of the inputs that together exceed the L2 cache, so
@@ -141,7 +155,8 @@ come from the run of each kernel's path (phases 5-7; the batched kernels'
 from phase 10), with the counts set to 0 just before it and read just after;
 the comparison launches are not in them.  Phase 12 reads the counts of its
 own paths (the ``gpu`` corpus bench, ``resume``) the same way; it adds no
-kernel.  ``bound_ms`` is the larger of
+kernel.  Each entry's ``headline_launches`` are phase 14's, read the same
+way (K1 for the probe, the batched K2 and K3).  ``bound_ms`` is the larger of
 the bytes each kernel must move over 3.35 TB/s and its operations over 67
 T/s (the H100's non-tensor rate;
 ``datacomp_tpu_torch.benchmark.kernels.bound`` and its work counts); K4,
@@ -181,6 +196,8 @@ BATCH_VALID = (CHUNK, CHUNK - TAIL, 17, 0)  # and their valid lengths
 SHARDED_VALID = (CHUNK, CHUNK - TAIL, CHUNK, 0)  # the sharded step's rows' valid lengths
 AUTO_BATCH = 4  # batch_chunks auto on a CUDA device
 VARIANT_K = (1, 2, 3, 4, 5, 8, 64)  # K1p's stripe counts checked (3, 5, 64: uneven stripes)
+HEADLINE_ITERS = 2  # the headline's BENCH_ITERS default
+HEADLINE_SUBPROCESS_MB = 16  # the module's own run: its line and exit code
 
 
 def fail(msg: str) -> None:
@@ -513,18 +530,6 @@ def check_variants() -> dict:
         print(f"  {kind}: " + ", ".join(f"{name} {r['ms']} ({r['device_ms']})"
                                         for (name, k), r in ms.items() if k == kind), flush=True)
     return {"launches": launches, "max_abs_err": err, "ms": ms}
-
-
-def write_corpus(path: str) -> None:
-    """bench.py's corpus: a quarter each of text, compressible, skewed, random."""
-    from datacomp_tpu_torch.utils.testdata import generate_bytes
-
-    mb = 1 << 20
-    per = CORPUS_MB // 4
-    with open(path, "wb") as f:
-        for kind in ("text", "compressible", "skewed"):
-            f.write(generate_bytes(kind, per * mb))
-        f.write(generate_bytes("random", (CORPUS_MB - 3 * per) * mb))
 
 
 def run_cli(label: str, compress_args: list, src: str, dcz: str, out: str,
@@ -1392,12 +1397,84 @@ def check_surfaces(d: str, src: str, hist: dict, codec: dict, cbook: dict) -> di
     return res
 
 
+def run_headline(d: str, src: str, fast: dict) -> dict:
+    """Phase 14: the headline benchmark (``datacomp_tpu_torch.bench``).  In
+    this process, both legs on the corpus at full size (16 MiB chunks,
+    ``HEADLINE_ITERS``), with every count set to 0 just before and read just
+    after: the ``gpu`` leg's ``.dcz`` is phase 6's and its ratio phase 6's,
+    K1 ran for the service's probe alone, K2 and K3 as the container implies
+    at ``batch_chunks`` auto for each warm-up and timed call, and no plain
+    version or host route ran.  Then ``python -m datacomp_tpu_torch.bench``
+    once at ``BENCH_SIZE_MB=16``: exit 0 and one JSON line on stdout."""
+    from datacomp_tpu_torch import bench
+    from datacomp_tpu_torch.ops import COUNTERS, reset_counters
+    from datacomp_tpu_torch.services import gpu_service
+
+    t_phase = time.perf_counter()
+    work = os.path.join(d, "headline")
+    os.makedirs(work)
+    reset_counters()
+    gpu_service.host_encode_routes.reset()
+    gpu_service.host_decode_routes.reset()
+    line = bench.run(src, work, CHUNK >> 20, HEADLINE_ITERS, list(bench.BACKENDS))
+    launches = {name: k.value for name, (k, _) in COUNTERS.items()}
+    plain = sum(r.value for _, r in COUNTERS.values())
+    routes = (gpu_service.host_encode_routes.value, gpu_service.host_decode_routes.value)
+    in_process_s = time.perf_counter() - t_phase
+    print(f"14 headline, in process ({in_process_s} s): {json.dumps(line)}", flush=True)
+    dcz = os.path.join(work, "g.dcz")
+    if not filecmp.cmp(dcz, os.path.join(d, "fast.dcz"), shallow=False):
+        fail("headline: the gpu leg's .dcz differs from phase 6's")
+    if line["gpu_ratio"] != round(fast["ratio"], 4):
+        fail(f"headline: gpu_ratio {line['gpu_ratio']} is not phase 6's {fast['ratio']}")
+    calls = 1 + HEADLINE_ITERS  # a warm-up, then the timed calls, each way
+    want, want_routes = expected_launches(dcz, False, AUTO_BATCH, probes=0)
+    want = {name: calls * n for name, n in want.items()}
+    want["histogram"] += 1  # the service's availability probe
+    got = {name: launches[name] for name in want}
+    if got != want or plain or routes != (0, calls * want_routes):
+        fail(f"headline: launches {got}, plain calls {plain}, routes {routes}; the "
+             f"container implies {want} and {calls * want_routes} host decode routes")
+    if line["device"]["name"] != torch.cuda.get_device_name(0):
+        fail(f"headline: device {line['device']} is not the card")
+    print(f"14 headline: gpu .dcz byte-identical to phase 6's, ratio {line['gpu_ratio']}; "
+          f"launches {got} as the container implies for {calls} compresses and decompresses "
+          f"and one probe; no plain version, no host route", flush=True)
+
+    t0 = time.perf_counter()
+    env = {**os.environ, "BENCH_SIZE_MB": str(HEADLINE_SUBPROCESS_MB)}
+    for key in ("BENCH_CHUNK_MB", "BENCH_ITERS", "BENCH_BACKENDS", "DATACOMP_DEVICE_PLATFORM"):
+        env.pop(key, None)
+    try:
+        proc = subprocess.run([sys.executable, "-m", "datacomp_tpu_torch.bench"], env=env,
+                              cwd=os.path.dirname(os.path.abspath(__file__)),
+                              capture_output=True, text=True, timeout=300)
+    except subprocess.TimeoutExpired:
+        fail("headline: python -m datacomp_tpu_torch.bench ran past 300 s")
+    sub_s = time.perf_counter() - t0
+    lines = proc.stdout.splitlines()
+    print(f"14 headline, python -m datacomp_tpu_torch.bench at BENCH_SIZE_MB="
+          f"{HEADLINE_SUBPROCESS_MB} ({sub_s} s, exit {proc.returncode}): {proc.stdout.strip()}",
+          flush=True)
+    if proc.returncode != 0 or len(lines) != 1:
+        fail(f"headline: the module exited {proc.returncode} with {len(lines)} stdout lines; "
+             f"stderr:\n{proc.stderr[-3000:]}")
+    sub = json.loads(lines[0])
+    missing = sorted(set(line) - set(sub))
+    if missing or sub["file_mb"] != HEADLINE_SUBPROCESS_MB or sub["gpu_link_ceiling_mbps"] is None:
+        fail(f"headline: the module's line lacks {missing} or its numbers: {sub}")
+    seconds = time.perf_counter() - t_phase
+    print(f"phase 14 {seconds} s", flush=True)
+    return {"line": line, "launches": {k: v for k, v in launches.items() if v},
+            "subprocess_line": sub, "subprocess_s": sub_s, "seconds": seconds}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
               file=sys.stderr)
         return 1
-    from datacomp_tpu_torch import native
+    from datacomp_tpu_torch import bench, native
     from datacomp_tpu_torch.benchmark.kernels import bound, card_line, histogram_work
     from datacomp_tpu_torch.config import load_config
     from datacomp_tpu_torch.ops import _build
@@ -1421,7 +1498,7 @@ def main() -> int:
     check_short_tail()
     with tempfile.TemporaryDirectory() as d:
         src = os.path.join(d, "bench.bin")
-        write_corpus(src)
+        bench.write_corpus(src, CORPUS_MB)
         cbook = check_codebook(np.fromfile(src, np.uint8))
         variants = check_variants()
         fast = run_fast_path(d, src)
@@ -1440,6 +1517,7 @@ def main() -> int:
         check_surfaces(d, src, hist, codec, cbook)
         local = run_local_mesh(d, src)
         print("local mesh: " + json.dumps(local), flush=True)
+        headline = run_headline(d, src, fast)
     jax_side = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "datacomp_tpu"))
     if jax_side:
         fail(f"jax or the JAX package was imported: {jax_side}")
@@ -1491,6 +1569,8 @@ def main() -> int:
                         "local_mesh_launches": local["dev2" if name != "decode" else "fast"]
                         ["launches"][f"{name}_batch"],
                         "rows": len(BATCH_VALID), **batched[name], "library_ms": None})
+    for entry in kernels:  # phase 14's run of the headline
+        entry["headline_launches"] = headline["launches"].get(entry["name"], 0)
     print(card_line())
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

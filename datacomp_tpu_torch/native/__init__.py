@@ -4,8 +4,13 @@ The port's copy of ``datacomp_tpu/native``, held to the same bytes by
 ``tests/test_torch_host.py``.
 
 The shared library is compiled on first use with g++ (cached in the
-package's ``_build/`` beside the CUDA kernels; rebuilt when the source is
-newer).  Several processes may share a checkout (test workers, the CLI), so
+package's ``_build/`` beside the CUDA kernels).  It is built for the machine
+that builds it (``-march=native``), so a stamp beside it names that machine
+and compiler: a hash of ``g++ --version`` and of the target options that
+``-march=native`` resolves to (``g++ -march=native -Q --help=target``).  The
+library is rebuilt when the source is newer, or when the stamp is missing or
+names another machine, as it does in a working copy carried to another
+host.  Several processes may share a checkout (test workers, the CLI), so
 the build holds a file lock, compiles to a file of its own and renames it onto
 the library's path: no process loads a half-written library.  All entry
 points release the GIL during the call (plain ctypes), so the CPU service can
@@ -22,6 +27,7 @@ from __future__ import annotations
 
 import ctypes
 import fcntl
+import hashlib
 import os
 import subprocess
 import threading
@@ -33,44 +39,74 @@ _SRC = os.path.join(_HERE, "dcz_native.cpp")
 _BUILD_DIR = os.path.join(os.path.dirname(_HERE), "_build")
 _LIB_PATH = os.path.join(_BUILD_DIR, "libdcz_native.so")
 
+_FLAGS = ["-O3", "-march=native", "-funroll-loops", "-std=c++17", "-shared", "-fPIC"]
+
 _lock = threading.Lock()
 _lib = None
 _build_error: str | None = None
+_machine: str | None = None
+
+
+def _stamp_path() -> str:
+    return _LIB_PATH + ".stamp"
+
+
+def _machine_key() -> str:
+    """The build machine and compiler: a hash of ``g++ --version`` and of
+    what ``-march=native`` means here (computed once a process)."""
+    global _machine
+    if _machine is None:
+        h = hashlib.sha256()
+        for args in (["--version"], ["-march=native", "-Q", "--help=target"]):
+            r = subprocess.run(["g++", *args], capture_output=True, text=True)
+            h.update(f"{args} {r.returncode}\n{r.stdout}{r.stderr}".encode())
+        _machine = h.hexdigest()
+    return _machine
+
+
+def _stamped_machine() -> str | None:
+    """The machine key in the library's stamp, or None without one."""
+    try:
+        with open(_stamp_path()) as f:
+            first = f.readline().split()
+    except FileNotFoundError:
+        return None
+    return first[1] if len(first) == 2 and first[0] == "machine" else None
 
 
 def _stale() -> bool:
-    return not os.path.exists(_LIB_PATH) or os.path.getmtime(_LIB_PATH) < os.path.getmtime(_SRC)
+    return (
+        not os.path.exists(_LIB_PATH)
+        or os.path.getmtime(_LIB_PATH) < os.path.getmtime(_SRC)
+        or _stamped_machine() != _machine_key()
+    )
 
 
 def _build() -> None:
     """Compile the library unless another process did while this one waited
     for the lock; the compiler writes a file of this process's own, which is
-    then renamed onto the library's path in one step."""
+    then renamed onto the library's path in one step, and the stamp follows
+    it the same way (a library without its stamp is rebuilt)."""
     os.makedirs(_BUILD_DIR, exist_ok=True)
     with open(os.path.join(_BUILD_DIR, "native.lock"), "w") as lock:
         fcntl.flock(lock, fcntl.LOCK_EX)  # released when the file closes
         if not _stale():
             return
         tmp = f"{_LIB_PATH}.{os.getpid()}.tmp"
-        cmd = [
-            "g++",
-            "-O3",
-            "-march=native",
-            "-funroll-loops",
-            "-std=c++17",
-            "-shared",
-            "-fPIC",
-            "-o",
-            tmp,
-            _SRC,
-        ]
+        flags = list(_FLAGS)
         try:
             try:
-                subprocess.run(cmd, check=True, capture_output=True, text=True)
+                subprocess.run(["g++", *flags, "-o", tmp, _SRC], check=True,
+                               capture_output=True, text=True)
             except subprocess.CalledProcessError:
-                cmd.remove("-march=native")  # fall back for toolchains without it
-                subprocess.run(cmd, check=True, capture_output=True, text=True)
+                flags.remove("-march=native")  # fall back for toolchains without it
+                subprocess.run(["g++", *flags, "-o", tmp, _SRC], check=True,
+                               capture_output=True, text=True)
             os.replace(tmp, _LIB_PATH)
+            plain = "" if "-march=native" in flags else " (plain: -march=native refused)"
+            with open(tmp, "w") as f:
+                f.write(f"machine {_machine_key()}\nflags {' '.join(flags)}{plain}\n")
+            os.replace(tmp, _stamp_path())
         finally:
             if os.path.exists(tmp):
                 os.remove(tmp)

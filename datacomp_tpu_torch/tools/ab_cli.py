@@ -5,7 +5,7 @@ another, on ``chip_smoke.py`` phases 6 and 7.
 
 DIR is another checkout of this repository, for example the parent commit
 unpacked by ``git archive`` into a git-ignored directory of this one
-(``_ab/parent``).  bench.py's corpus (``tools.local_mesh.write_corpus``,
+(``_ab/parent``).  bench.py's corpus (``bench.write_corpus``,
 128 MB by default) is written once.  Then ``pairs`` pairs of turns run (5
 by default), DIR first in even pairs and this checkout first in odd ones.
 A turn is a process of its own with its checkout first on the path and
@@ -83,7 +83,7 @@ def _turn(checkout: str, corpus: str) -> dict:
 
 
 def run(checkout: str, pairs: int = 5, corpus_mb: int = 128, emit=print) -> dict:
-    from datacomp_tpu_torch.tools.local_mesh import write_corpus
+    from datacomp_tpu_torch.bench import write_corpus
 
     turns = {"parent": [], "this": []}
     with tempfile.TemporaryDirectory() as d:

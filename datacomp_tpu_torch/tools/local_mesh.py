@@ -32,17 +32,7 @@ import time
 
 import torch
 
-from ..utils.testdata import generate_bytes
-
-
-def write_corpus(path: str, mb: int) -> None:
-    """bench.py's corpus: a quarter each of text, compressible, skewed and
-    random."""
-    per = mb // 4
-    with open(path, "wb") as f:
-        for kind in ("text", "compressible", "skewed"):
-            f.write(generate_bytes(kind, per << 20))
-        f.write(generate_bytes("random", (mb - 3 * per) << 20))
+from ..bench import write_corpus
 
 
 def _cli(argv: list, device_index: str | None = None) -> tuple:

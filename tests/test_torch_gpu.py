@@ -25,13 +25,19 @@ trip, and the file path's ``.dcz`` against the single-card service's.  The
 benchmark module on the card: the kernel bench's rows exact with positive
 times and bounds, the batch benches, the suite's GPU row named after the
 card, the corpus bench's ``gpu`` sizes equal to its ``cpu`` ones, and
-``resume`` equal to a one-shot compress.
+``resume`` equal to a one-shot compress.  The golden fixtures through K2 and
+K3 (``tests/test_torch_golden.py`` on the card), and the headline's ``gpu``
+leg with its link probe.
 
 Marked ``gpu``: every test skips without a CUDA device.  On a machine with
 one (and no jax, which ``tests/conftest.py`` imports):
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_gpu.py -q
 """
+
+import hashlib
+import json
+import os
 
 import numpy as np
 import pytest
@@ -45,6 +51,7 @@ from datacomp_tpu.utils.testdata import generate_bytes  # noqa: E402
 import datacomp_tpu_torch.config  # noqa: E402
 from datacomp_tpu_torch import ops  # noqa: E402
 from datacomp_tpu_torch.core import read_container  # noqa: E402
+from datacomp_tpu_torch.services import CpuCompressionService as PortCpuService  # noqa: E402
 from datacomp_tpu_torch.services import GpuCompressionService  # noqa: E402
 
 pytestmark = pytest.mark.gpu
@@ -839,3 +846,83 @@ def test_resume_on_the_card_equals_one_shot(cuda, tmp_path, monkeypatch):
     assert launches >= 1 and not any(c[1].value for c in ops.COUNTERS.values())
     with open(dcz, "rb") as f:
         assert f.read() == full
+
+
+_GOLDEN_DIR = os.path.join(os.path.dirname(__file__), "golden")
+with open(os.path.join(_GOLDEN_DIR, "hashes.json")) as _f:
+    _GOLDEN = json.load(_f)
+
+
+@pytest.mark.parametrize("name", sorted(_GOLDEN))
+def test_golden_fixtures_on_the_card(cuda, tmp_path, name):
+    """``tests/test_torch_golden.py`` on the card: the input in java v1
+    through K2 to its pinned size and SHA-256 (and checked-in archive); in
+    fast v2 through K2 and K3 back to itself, the ``.dcz`` equal to the host
+    codec's; the checked-in archive (v1: host decode route) decoded and
+    deep-verified.  One chunk a launch, no plain version."""
+    from datacomp_tpu_torch.services import gpu_service
+
+    spec = _GOLDEN[name]
+    data = generate_bytes(spec["input_kind"], spec["input_size"])
+    src = tmp_path / name
+    src.write_bytes(data)
+    os.utime(src, (1_700_000_000, 1_700_000_000))  # tests/test_golden.py's mtime
+    archive = os.path.join(_GOLDEN_DIR, name + ".dcz")
+    for version, mode in ((1, "java"), (2, "fast")):
+        comp = {"chunk_size_mb": spec["chunk_mb"], "format_version": version,
+                "codebook_mode": mode}
+        cfg = datacomp_tpu_torch.config.load_config(compression=comp, device={"batch_chunks": 1})
+        dcz, out = str(tmp_path / f"v{version}.dcz"), str(tmp_path / f"v{version}.out")
+        ops.reset_counters()
+        with GpuCompressionService(cfg, device="cuda") as svc:
+            svc.compress(str(src), dcz)
+            svc.decompress(dcz, out)
+        blob = open(dcz, "rb").read()
+        assert open(out, "rb").read() == data
+        assert not any(c[1].value for c in ops.COUNTERS.values())
+        header, _ = read_container(dcz)
+        coded = [ops.max_code_len(c.code_lengths) for c in header.chunks
+                 if c.code_lengths.any()]
+        assert ops.COUNTERS["encode"][0].value == len(coded)
+        if version == 1:
+            assert len(blob) == spec["dcz_size"]
+            assert hashlib.sha256(blob).hexdigest() == spec["dcz_sha256"]
+            if os.path.exists(archive):
+                assert blob == open(archive, "rb").read()
+        else:
+            host = str(tmp_path / "host.dcz")
+            with PortCpuService(cfg) as svc:
+                svc.compress(str(src), host)
+            assert blob == open(host, "rb").read()
+            assert ops.COUNTERS["decode"][0].value == sum(0 < d <= ops.TABLE_BITS for d in coded)
+    if os.path.exists(archive):
+        gpu_service.host_decode_routes.reset()
+        cfg = datacomp_tpu_torch.config.load_config(device={"batch_chunks": 1})
+        with GpuCompressionService(cfg, device="cuda") as svc:
+            assert svc.verify_integrity(archive, deep=True)
+            svc.decompress(archive, str(tmp_path / "archive.out"))
+        assert (tmp_path / "archive.out").read_bytes() == data
+        assert gpu_service.host_decode_routes.value == 2 * len(read_container(archive)[0].chunks)
+
+
+def test_bench_gpu_leg_on_the_card(cuda, tmp_path, monkeypatch):
+    """The headline's ``gpu`` leg at 4 MB in 1 MiB chunks: its ``.dcz`` is the
+    plain versions', every link field is a positive number, and the device
+    is the card."""
+    from datacomp_tpu_torch import bench
+
+    monkeypatch.delenv("DATACOMP_DEVICE_PLATFORM", raising=False)
+    src = str(tmp_path / "bench.bin")
+    bench.write_corpus(src, 4)
+    ops.reset_counters()
+    result, link, device = bench.gpu_leg(src, str(tmp_path), 1, 1)
+    assert device.type == "cuda"
+    assert ops.COUNTERS["encode_batch"][0].value and ops.COUNTERS["decode_batch"][0].value
+    assert not any(c[1].value for c in ops.COUNTERS.values())
+    assert set(link) == set(bench.LINK_KEYS) and all(v >= 0 for v in link.values())
+    assert all(link[k] > 0 for k in bench.LINK_KEYS if "mbps" in k or "ceiling" in k)
+    with GpuCompressionService(bench.gpu_config(1), device="cpu") as svc:
+        svc.compress(src, str(tmp_path / "plain.dcz"))
+    assert (tmp_path / "g.dcz").read_bytes() == (tmp_path / "plain.dcz").read_bytes()
+    assert result["ratio"] == round(os.path.getsize(tmp_path / "g.dcz") / (4 << 20), 4)
+    assert bench.device_fields(device)["name"] == torch.cuda.get_device_name(device)
