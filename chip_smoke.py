@@ -142,6 +142,17 @@
     exit 0 and one JSON line with every key of the in-process line.  Both
     lines are printed; the kernels line carries each kernel's
     ``headline_launches``.
+15. The CLI's options, through ``cli.main`` in this process.  15a: the
+    corpus through ``compress --backend gpu --format 2 --codebook-mode fast
+    --max-code-len 12 --no-verify`` at ``batch_chunks`` 1, then
+    ``decompress --backend gpu``: the ``.dcz`` equals the host codec's in
+    the same config, every coded chunk is at most 12 bits deep, K2 and K3
+    ran once a coded chunk and nothing else ran (``--backend gpu`` builds
+    the GPU service without the factory's probe), and the corpus is
+    restored.  15b: ``compress --sharded`` with no format or codebook flag
+    (one rank in this process) writes phase 7's device v2 ``.dcz``.  15c:
+    ``compress --backend gpu`` and ``--backend auto`` as two subprocesses
+    with ``CUDA_VISIBLE_DEVICES=`` exit non-zero and write no file.
 
 Kernel, plain and library times are taken with CUDA events after a warm-up,
 cycling through copies of the inputs that together exceed the L2 cache, so
@@ -533,9 +544,11 @@ def check_variants() -> dict:
 
 
 def run_cli(label: str, compress_args: list, src: str, dcz: str, out: str,
-            batch: int = 1) -> dict:
+            batch: int = 1, decompress_args: tuple = (), probes: int = 2) -> dict:
     """compress then decompress through the CLI at ``batch_chunks`` ``batch``
-    (0: auto), with every count set to 0 just before and read just after."""
+    (0: auto), with every count set to 0 just before and read just after.
+    ``probes``: the services' availability probes (K1 launches), one a
+    command through the factory and none under ``--backend gpu``."""
     from datacomp_tpu_torch import cli
     from datacomp_tpu_torch.ops import COUNTERS, reset_counters
     from datacomp_tpu_torch.services import gpu_service
@@ -547,7 +560,7 @@ def run_cli(label: str, compress_args: list, src: str, dcz: str, out: str,
     t0 = time.perf_counter()
     rc_c = cli.main(["compress", src, dcz, "16", *compress_args, "--no-verify", "--stages"])
     t1 = time.perf_counter()
-    rc_d = cli.main(["decompress", dcz, out, "16", "--stages"])
+    rc_d = cli.main(["decompress", dcz, out, "16", *decompress_args, "--stages"])
     t2 = time.perf_counter()
     del os.environ["DATACOMP_DEVICE_BATCH_CHUNKS"]
     res = {
@@ -555,7 +568,7 @@ def run_cli(label: str, compress_args: list, src: str, dcz: str, out: str,
         "plain": {name: r.value for name, (_, r) in COUNTERS.items()},
         "encode_routes": gpu_service.host_encode_routes.value,
         "decode_routes": gpu_service.host_decode_routes.value,
-        "probes": 2,  # one availability probe for each CLI command's service
+        "probes": probes,
     }
     print(flush=True)
     if rc_c or rc_d:
@@ -1469,6 +1482,84 @@ def run_headline(d: str, src: str, fast: dict) -> dict:
             "subprocess_line": sub, "subprocess_s": sub_s, "seconds": seconds}
 
 
+def run_cli_options(d: str, src: str) -> dict:
+    """Phase 15: the CLI's ``--backend``, ``--max-code-len`` and ``--sharded``
+    defaults on the card.  15a: ``--backend gpu`` fast v2 at ``--max-code-len
+    12``, ``batch_chunks`` 1: the host codec's ``.dcz``, every depth at most
+    12, K2 and K3 once a coded chunk, nothing else.  15b: ``compress
+    --sharded`` with no format or codebook flag: phase 7's ``.dcz``.  15c:
+    ``--backend gpu`` and ``auto`` without a visible card exit non-zero and
+    write nothing."""
+    from datacomp_tpu_torch.core import read_container
+    from datacomp_tpu_torch.ops import max_code_len
+
+    t_phase = time.perf_counter()
+    cap = 12
+    dcz, out, ref = (os.path.join(d, f) for f in ("cap.dcz", "cap.out", "cap-host.dcz"))
+    res = run_cli(f"--backend gpu, fast v2, --max-code-len {cap}",
+                  ["--backend", "gpu", "--format", "2", "--codebook-mode", "fast",
+                   "--max-code-len", str(cap)], src, dcz, out,
+                  decompress_args=("--backend", "gpu"), probes=0)
+    host = host_codec({"format_version": 2, "codebook_mode": "fast", "max_code_len": cap}, src,
+                      ref, os.path.join(d, "cap-host.out"))
+    if not filecmp.cmp(dcz, ref, shallow=False):
+        fail("15a: the --backend gpu .dcz differs from the host codec's")
+    depths = [max_code_len(c.code_lengths) for c in read_container(dcz)[0].chunks]
+    coded = sum(1 for dep in depths if dep > 0)
+    want = {name: 0 for name in res["launches"]} | {"encode": coded, "decode": coded}
+    if max(depths) > cap or coded == 0 or res["launches"] != want or res["decode_routes"]:
+        fail(f"15a: depths {depths}, launches {res['launches']} (want {want}), host decode "
+             f"routes {res['decode_routes']}")
+    cap_s = time.perf_counter() - t_phase
+    print(f"15a --backend gpu --max-code-len {cap} ({cap_s} s): .dcz byte-identical to the "
+          f"host codec's (which ran at {host[0]} / {host[1]} MB/s); depths {depths} (0 = "
+          f"stored raw); K2 and K3 {coded} launches each, nothing else", flush=True)
+
+    dcz = os.path.join(d, "defaults-sharded.dcz")
+    t0 = time.perf_counter()
+    _, text = cli_in_process(["compress", src, dcz, "16"])
+    sharded_s = time.perf_counter() - t0
+    counts_line = json.loads(text.split("counts: ")[1].splitlines()[0])
+    if not filecmp.cmp(dcz, os.path.join(d, "dev2.dcz"), shallow=False):
+        fail("15b: compress --sharded with no flags differs from phase 7's device v2 .dcz")
+    if "Verify:     OK" not in text or sum(counts_line["plain"].values()):
+        fail(f"15b: verify or plain calls: {counts_line}")
+    sharded_launches = {k: v for k, v in counts_line["launches"].items() if v}
+    print(f"15b compress --sharded, no format or codebook flag ({sharded_s} s): .dcz "
+          f"byte-identical to phase 7's device v2 file; launches {sharded_launches}",
+          flush=True)
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = {k: v for k, v in os.environ.items() if not k.startswith("DATACOMP_")}
+    env.update(CUDA_VISIBLE_DEVICES="",
+               PYTHONPATH=os.pathsep.join(filter(None, [root, os.environ.get("PYTHONPATH")])))
+    procs, t0 = {}, time.perf_counter()
+    try:
+        for backend in ("gpu", "auto"):
+            target = os.path.join(d, f"nocard-{backend}.dcz")
+            procs[backend] = (target, subprocess.Popen(
+                [sys.executable, "-m", "datacomp_tpu_torch.cli", "compress", src, target, "16",
+                 "--backend", backend], cwd=root, env=env, stdout=subprocess.PIPE,
+                stderr=subprocess.PIPE, text=True))
+        results = {b: (p.communicate(timeout=120), p.returncode, t) for b, (t, p) in procs.items()}
+    finally:
+        for _, proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    for backend, ((_, err), rc, target) in results.items():
+        if rc == 0 or os.path.exists(target) or "no CUDA device" not in err:
+            fail(f"15c: --backend {backend} with no visible card exited {rc}, wrote "
+                 f"{os.path.exists(target)}:\n{err[-2000:]}")
+    nocard_s, seconds = time.perf_counter() - t0, time.perf_counter() - t_phase
+    print(f"15c --backend gpu and auto with CUDA_VISIBLE_DEVICES='' ({nocard_s} s, two "
+          f"processes at once): exit codes { {b: r[1] for b, r in results.items()} }, no file "
+          f"written", flush=True)
+    print(f"15 cli: {seconds} s", flush=True)
+    return {"seconds": seconds, "cap_s": cap_s, "sharded_s": sharded_s, "nocard_s": nocard_s,
+            "depths": depths, "launches": res["launches"], "sharded_launches": sharded_launches}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
@@ -1518,6 +1609,7 @@ def main() -> int:
         local = run_local_mesh(d, src)
         print("local mesh: " + json.dumps(local), flush=True)
         headline = run_headline(d, src, fast)
+        run_cli_options(d, src)
     jax_side = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "datacomp_tpu"))
     if jax_side:
         fail(f"jax or the JAX package was imported: {jax_side}")

@@ -5,7 +5,8 @@ arguments, progress line and report).
 
     python -m datacomp_tpu_torch.cli compress IN OUT.dcz [CHUNK_MB] --format 2 --codebook-mode fast
     python -m datacomp_tpu_torch.cli compress IN OUT.dcz --format 2 --codebook-mode device
-    python -m datacomp_tpu_torch.cli decompress OUT.dcz RESTORED
+    python -m datacomp_tpu_torch.cli compress IN OUT.dcz --format 2 --codebook-mode fast --max-code-len 12
+    python -m datacomp_tpu_torch.cli decompress OUT.dcz RESTORED --backend gpu
     python -m datacomp_tpu_torch.cli verify OUT.dcz --deep
     python -m datacomp_tpu_torch.cli resume IN OUT.dcz --last-chunk 2
     python -m datacomp_tpu_torch.cli bench --size-mb 16 --format-out json
@@ -16,12 +17,18 @@ arguments, progress line and report).
     python -m datacomp_tpu_torch.cli dashboard --html report.html
     python -m datacomp_tpu_torch.cli config --init datacomp.toml
     python -m torch.distributed.run --standalone --nproc_per_node 2 \
-        -m datacomp_tpu_torch.cli compress IN OUT.dcz --sharded --format 2
-    python -m datacomp_tpu_torch.cli compress IN OUT.dcz --sharded --format 2 --codebook-mode device
+        -m datacomp_tpu_torch.cli compress IN OUT.dcz --sharded
+    python -m datacomp_tpu_torch.cli compress IN OUT.dcz --sharded --format 2 --codebook-mode fast
 
-The GPU service needs a CUDA device and raises without one.  The config's
-``device`` section selects otherwise: ``DATACOMP_DEVICE_PLATFORM=cpu`` runs
-the kernels' plain PyTorch versions, ``DATACOMP_DEVICE_FORCE_CPU=1`` the host
+``compress --sharded`` writes what the JAX CLI's does: format 2 with the
+device codebook, unless ``--format`` or ``--codebook-mode`` says otherwise
+(``--format 1`` keeps the config's codebook mode).
+``--backend`` (``compress``, ``decompress``, ``verify``, ``resume``) is the
+JAX CLI's with ``gpu`` for ``tpu``: ``cpu`` the host codec, ``gpu`` the GPU
+service, ``auto`` the config's choice.  The GPU service needs a CUDA device
+and raises without one, under ``auto`` too.  The config's ``device``
+section selects otherwise: ``DATACOMP_DEVICE_PLATFORM=cpu`` runs the
+kernels' plain PyTorch versions, ``DATACOMP_DEVICE_FORCE_CPU=1`` the host
 codec.  ``bench --kernels`` and ``bench --batched`` time the kernels on the
 card and need one; ``resume`` takes the JAX verb's arguments, so its format
 and codebook mode come from the config (``DATACOMP_COMPRESSION_*``).
@@ -34,10 +41,14 @@ import json
 import os
 import sys
 import time
+from dataclasses import replace
 
 from .config import load_config
 from .models import MetricsService
-from .services import create_compression_service, get_available_devices
+from .services import (
+    CpuCompressionService, GpuCompressionService, create_compression_service,
+    get_available_devices,
+)
 
 
 def _progress_printer(label: str, total_bytes: int = 0):
@@ -88,16 +99,35 @@ def _report(op: str, in_path: str, out_path: str, seconds: float) -> None:
 
 
 def _config(args):
+    """The config of a command.  ``compress`` takes the JAX CLI's defaults:
+    format 1 and the config's codebook mode, or under ``--sharded`` format 2
+    and the device codebook.  Explicit ``--format`` and ``--codebook-mode``
+    win under ``--sharded`` too (the JAX CLI ignores them there), and an
+    explicit ``--format 1`` keeps the config's codebook mode, as it does
+    unsharded.  ``--max-code-len`` always goes in, as in the JAX CLI."""
     comp = {"chunk_size_mb": args.chunk_mb}
-    if getattr(args, "format", None):
-        comp["format_version"] = args.format
-    if getattr(args, "codebook_mode", None):
-        comp["codebook_mode"] = args.codebook_mode
-    return load_config(compression=comp)
+    mode = getattr(args, "codebook_mode", None)
+    if hasattr(args, "format"):
+        comp["format_version"] = args.format or (2 if args.sharded else 1)
+        comp["max_code_len"] = args.max_code_len
+        if args.sharded and comp["format_version"] == 2:
+            mode = mode or "device"
+    if mode:
+        comp["codebook_mode"] = mode
+    cfg = load_config(compression=comp)
+    if args.backend == "cpu":  # the host codec, as force_cpu selects it
+        cfg = replace(cfg, device=replace(cfg.device, force_cpu=True))
+    return cfg
 
 
 def _make_service(args):
-    return create_compression_service(_config(args))
+    """``--backend gpu``: the GPU service, which raises without a CUDA device
+    unless ``device.platform`` is ``cpu``; ``cpu`` (``force_cpu``, set by
+    :func:`_config`) and ``auto``: the factory's choice."""
+    cfg = _config(args)
+    if args.backend == "gpu":
+        return GpuCompressionService(cfg)
+    return create_compression_service(cfg)
 
 
 def _rank_counts() -> dict:
@@ -123,11 +153,12 @@ def _run_sharded(args, compressing: bool) -> int:
     them, or a lone process (a job of one rank) over every visible GPU
     unless ``device.device_index`` names one.  The ranks share the file's
     chunks round-robin, and a lone process's GPUs share its groups
-    (``parallel.compress_multihost`` / ``decompress_multihost``); the config
-    selects the backend as the unsharded verbs do.  Rank 0 prints the
-    report; with ``--stages`` it prints every rank's stage breakdown and the
-    kernel launches, plain calls and host routes summed over the ranks and
-    their GPUs."""
+    (``parallel.compress_multihost`` / ``decompress_multihost``).  The
+    config selects the backend as the unsharded verbs do, and ``--backend
+    cpu`` selects the host codec.  Rank 0 prints the report; with
+    ``--stages`` it prints every rank's stage breakdown and the kernel
+    launches, plain calls and host routes summed over the ranks and their
+    GPUs."""
     import functools
 
     import torch.distributed as dist
@@ -137,7 +168,6 @@ def _run_sharded(args, compressing: bool) -> int:
         compress_multihost, decompress_multihost, initialize_distributed, local_devices,
         make_mesh,
     )
-    from .services import CpuCompressionService
 
     cfg = _config(args)
     devices = local_devices(cfg)
@@ -424,20 +454,32 @@ def build_parser() -> argparse.ArgumentParser:
             sp.add_argument("output")
         sp.add_argument("chunk_mb", nargs="?", type=int, default=16,
                         help="chunk size in MB (default 16)")
+        sp.add_argument("--backend", choices=["auto", "cpu", "gpu"], default="auto",
+                        help="cpu = the host codec, gpu = the GPU service (no CUDA "
+                             "device: an error, unless device.platform is cpu), auto = "
+                             "as the config selects (device.force_cpu)")
         sp.add_argument("--stages", action="store_true", help="print per-stage timing")
 
     sp = sub.add_parser("compress", aliases=["c"], help="compress a file")
     common(sp)
-    sp.add_argument("--format", type=int, choices=[1, 2], default=1,
-                    help="container version: 1=reference-compatible, 2=+gap arrays (device decode)")
+    sp.add_argument("--format", type=int, choices=[1, 2], default=None,
+                    help="container version: 1=reference-compatible, 2=+gap arrays "
+                         "(device decode); default 1, or 2 under --sharded")
     sp.add_argument("--no-verify", action="store_true",
                     help="skip the post-compress integrity verification")
+    sp.add_argument("--max-code-len", default=0, metavar="N|auto",
+                    type=lambda s: -1 if s.strip().lower() == "auto" else int(s),
+                    help="cap code lengths at N bits via optimal package-merge "
+                         "(0 = unlimited [v1 default]; 'auto' = shallowest cap "
+                         "costing <0.5%% extra bits [v2 default]; <=16 keeps "
+                         "v2 decode on-device)")
     sp.add_argument("--codebook-mode", choices=["java", "fast", "device"], default=None,
                     help="java = reference-bit-exact tie-breaks (default), "
                          "fast = two-queue optimal, device = histogram, codebook "
                          "and encode all on the GPU: optimal codes with no length "
                          "cap (the config's max_code_len is ignored), so v2 files "
-                         "differ from the host codec's capped ones")
+                         "differ from the host codec's capped ones; default java, "
+                         "or device under --sharded")
     sp.add_argument("--sharded", action="store_true", help=sharded_help)
     sp.set_defaults(func=cmd_compress)
 

@@ -224,12 +224,12 @@ def test_resume_equals_one_shot(tmp_path, capsys, monkeypatch):
 
 
 def test_resume_takes_the_jax_arguments():
-    """The verb's arguments are the JAX verb's, less its ``--backend``."""
+    """The verb's arguments are the JAX verb's, ``--backend`` included."""
     def options(parser):
         sub = next(a for a in parser._actions if a.dest == "command").choices["resume"]
         return {a.dest for a in sub._actions} - {"help"}
 
-    assert options(pcli.build_parser()) == options(jcli.build_parser()) - {"backend"}
+    assert options(pcli.build_parser()) == options(jcli.build_parser())
 
 
 def test_config_template_round_trips(tmp_path, capsys):
