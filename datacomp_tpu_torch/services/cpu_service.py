@@ -103,7 +103,7 @@ class CpuChunkCodec(ChunkCodec):
             # raw-stored incompressible chunk
             with metrics.timed(Stage.DECODING, meta.original_size):
                 return np.frombuffer(payload, dtype=np.uint8)
-        with metrics.timed(Stage.HUFFMAN_TREE_BUILD):
+        with metrics.timed(Stage.HUFFMAN_TREE_BUILD, span="decode_tables"):
             if not huffman.validate_lengths(meta.code_lengths):
                 raise huffman.CorruptChunkError(f"invalid code-length table in chunk {meta.index}")
         with metrics.timed(Stage.DECODING, meta.original_size):

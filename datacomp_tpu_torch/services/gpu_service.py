@@ -66,6 +66,7 @@ from ..ops import (
     payload_to_words,
     words_to_bytes,
 )
+from ..models.stage_metrics import span
 from ..ops._build import LaunchCounter
 from ..utils.checksum import compute_sha256
 from .base import CompressionService, FrequencyService, ProgressCallback
@@ -331,19 +332,23 @@ class GpuChunkCodec(ChunkCodec):
         n = data.size
         v2 = self.config.compression.format_version >= 2
         with metrics.timed(Stage.ENCODING, n):
-            x = self._upload([data])[0]
-            lens_t, codes_t = codebook_to_torch(lengths, codes, self.device)
-            words, total_bits, gaps = encode(
-                x, n, lens_t, codes_t, self.out_words, self.subblock if v2 else 0
-            )
-            tb = int(total_bits)
-            self._check_total(tb, opt_bits)
-            payload = words_to_bytes(words[: (tb + 31) // 32].cpu().numpy(), tb)
-            gap_bits = None
-            if v2:
-                nsub = (n + self.subblock - 1) // self.subblock
-                gap_bits = gaps[:nsub].cpu().numpy()
-        return EncodedChunk(payload, lengths.astype(np.int32), sha, gap_bits)
+            with span("upload"):
+                x = self._upload([data])[0]
+                lens_t, codes_t = codebook_to_torch(lengths, codes, self.device)
+            with span("launch"):
+                words, total_bits, gaps = encode(
+                    x, n, lens_t, codes_t, self.out_words, self.subblock if v2 else 0
+                )
+            with span("fetch"):
+                tb = int(total_bits)
+                live = words[: (tb + 31) // 32].cpu().numpy()
+                gap_bits = None
+                if v2:
+                    gap_bits = gaps[: (n + self.subblock - 1) // self.subblock].cpu().numpy()
+            with span("unpack"):
+                self._check_total(tb, opt_bits)
+                return EncodedChunk(words_to_bytes(live, tb), lengths.astype(np.int32), sha,
+                                    gap_bits)
 
     def _encode_device_codebook_v2(self, data, sha, opt_bits: int, metrics) -> EncodedChunk:
         """K1 → K4 → K2 with nothing fetched in between, then ONE copy back of
@@ -354,11 +359,16 @@ class GpuChunkCodec(ChunkCodec):
         nsub = (n + self.subblock - 1) // self.subblock
         nw = self._live_words(opt_bits)
         with metrics.timed(Stage.ENCODING, n):
-            x = self._upload([data])[0]
-            lens_t, codes_t = codebook(histogram(x, n))
-            words, total_bits, gaps = encode(x, n, lens_t, codes_t, self.out_words, self.subblock)
-            return self._v2_chunk(_fetch([total_bits, lens_t, gaps[:nsub], words[:nw]]), nsub,
-                                  sha, opt_bits)
+            with span("upload"):
+                x = self._upload([data])[0]
+            with span("launch"):
+                lens_t, codes_t = codebook(histogram(x, n))
+                words, total_bits, gaps = encode(x, n, lens_t, codes_t, self.out_words,
+                                                 self.subblock)
+            with span("fetch"):
+                flat = _fetch([total_bits, lens_t, gaps[:nsub], words[:nw]])
+            with span("unpack"):
+                return self._v2_chunk(flat, nsub, sha, opt_bits)
 
     def _v2_chunk(self, flat: np.ndarray, nsub: int, sha: bytes, opt_bits: int) -> EncodedChunk:
         """A device-codebook v2 chunk from its one copy back (``flat``, int32:
@@ -378,20 +388,28 @@ class GpuChunkCodec(ChunkCodec):
         v1 device branch of ``TpuChunkCodec._encode_chunk``)."""
         n = data.size
         with metrics.timed(Stage.FREQUENCY_ANALYSIS, n):
-            x = self._upload([data])[0]
-            hist_t = histogram(x, n)
+            with span("upload"):
+                x = self._upload([data])[0]
+            with span("launch"):
+                hist_t = histogram(x, n)
         with metrics.timed(Stage.HUFFMAN_TREE_BUILD, n):
-            lens_t, codes_t = codebook(hist_t)
-            hist, lengths = torch.cat([hist_t, lens_t]).cpu().numpy().reshape(2, 256)
-            _check_depth(lengths)
-            opt_bits = int(hist.astype(np.int64) @ lengths.astype(np.int64))
+            with span("launch"):
+                lens_t, codes_t = codebook(hist_t)
+            with span("fetch"):
+                hist, lengths = torch.cat([hist_t, lens_t]).cpu().numpy().reshape(2, 256)
+            with span("unpack"):
+                _check_depth(lengths)
+                opt_bits = int(hist.astype(np.int64) @ lengths.astype(np.int64))
         with metrics.timed(Stage.ENCODING, n):
-            words, total_bits, _ = encode(x, n, lens_t, codes_t, self.out_words)
-            flat = _fetch([total_bits, words[: self._live_words(opt_bits)]])
-            tb = int(flat[:2].view(np.int64)[0])
-            self._check_total(tb, opt_bits)
-            payload = words_to_bytes(flat[2:].view(np.uint32), tb)
-        return EncodedChunk(payload, lengths.copy(), sha, None)
+            with span("launch"):
+                words, total_bits, _ = encode(x, n, lens_t, codes_t, self.out_words)
+            with span("fetch"):
+                flat = _fetch([total_bits, words[: self._live_words(opt_bits)]])
+            with span("unpack"):
+                tb = int(flat[:2].view(np.int64)[0])
+                self._check_total(tb, opt_bits)
+                return EncodedChunk(words_to_bytes(flat[2:].view(np.uint32), tb), lengths.copy(),
+                                    sha, None)
 
     # -- batched encode -----------------------------------------------------
 
@@ -453,22 +471,28 @@ class GpuChunkCodec(ChunkCodec):
         nsubs = nsubs if v2 else []
         nws = [self._live_words(m[5]) for m in group]
         with metrics.timed(Stage.ENCODING, sum(valid)):
-            x = self._upload(datas)
-            tables = np.stack([np.stack([m[3] for m in group]).astype(np.int32),
-                               np.stack([m[4] for m in group]).astype(np.uint32).view(np.int32)])
-            t = _host_tensor(tables).to(self.device)  # int32[2, rows, 256]
-            words, totals, gaps = encode_batch(x, valid, t[0], t[1].view(torch.uint32),
-                                               self.out_words, self.subblock if v2 else 0)
-            parts = [totals] + [gaps[b, :k] for b, k in enumerate(nsubs)]
-            pieces = _split(_fetch(parts + [words[b, :k] for b, k in enumerate(nws)]),
-                            [2 * len(group)] + nsubs + nws)
-            tbs = pieces[0].view(np.int64)
-            out = []
-            for b, (_, _, sha, lengths, _, opt_bits) in enumerate(group):
-                self._check_total(int(tbs[b]), opt_bits)
-                gap_bits = pieces[1 + b].view(np.uint32).copy() if v2 else None
-                payload = words_to_bytes(pieces[1 + len(nsubs) + b].view(np.uint32), int(tbs[b]))
-                out.append(EncodedChunk(payload, lengths.astype(np.int32), sha, gap_bits))
+            with span("upload"):
+                x = self._upload(datas)
+                tables = np.stack([
+                    np.stack([m[3] for m in group]).astype(np.int32),
+                    np.stack([m[4] for m in group]).astype(np.uint32).view(np.int32)])
+                t = _host_tensor(tables).to(self.device)  # int32[2, rows, 256]
+            with span("launch"):
+                words, totals, gaps = encode_batch(x, valid, t[0], t[1].view(torch.uint32),
+                                                   self.out_words, self.subblock if v2 else 0)
+            with span("fetch"):
+                parts = [totals] + [gaps[b, :k] for b, k in enumerate(nsubs)]
+                flat = _fetch(parts + [words[b, :k] for b, k in enumerate(nws)])
+            with span("unpack"):
+                pieces = _split(flat, [2 * len(group)] + nsubs + nws)
+                tbs = pieces[0].view(np.int64)
+                out = []
+                for b, (_, _, sha, lengths, _, opt_bits) in enumerate(group):
+                    self._check_total(int(tbs[b]), opt_bits)
+                    gap_bits = pieces[1 + b].view(np.uint32).copy() if v2 else None
+                    payload = words_to_bytes(pieces[1 + len(nsubs) + b].view(np.uint32),
+                                             int(tbs[b]))
+                    out.append(EncodedChunk(payload, lengths.astype(np.int32), sha, gap_bits))
         return out
 
     def _encode_group_device_codebook_v2(self, group: list, metrics: StageMetrics) -> list:
@@ -479,22 +503,26 @@ class GpuChunkCodec(ChunkCodec):
         nws = [self._live_words(m[5]) for m in group]
         rows = len(group)
         with metrics.timed(Stage.ENCODING, sum(valid)):
-            x = self._upload(datas)
-            lens_t, codes_t = codebook_batch(histogram_batch(x, valid))
-            words, totals, gaps = encode_batch(x, valid, lens_t, codes_t, self.out_words,
-                                               self.subblock)
-            parts = [totals, lens_t] + [gaps[b, :k] for b, k in enumerate(nsubs)]
-            pieces = _split(_fetch(parts + [words[b, :k] for b, k in enumerate(nws)]),
-                            [2 * rows, 256 * rows] + nsubs + nws)
-            tbs = pieces[0].view(np.int64)
-            lengths = pieces[1].reshape(rows, 256)
-            out = []
-            for b, (_, _, sha, _, _, opt_bits) in enumerate(group):
-                _check_depth(lengths[b])
-                self._check_total(int(tbs[b]), opt_bits)
-                payload = words_to_bytes(pieces[2 + rows + b].view(np.uint32), int(tbs[b]))
-                out.append(EncodedChunk(payload, lengths[b].copy(), sha,
-                                        pieces[2 + b].view(np.uint32).copy()))
+            with span("upload"):
+                x = self._upload(datas)
+            with span("launch"):
+                lens_t, codes_t = codebook_batch(histogram_batch(x, valid))
+                words, totals, gaps = encode_batch(x, valid, lens_t, codes_t, self.out_words,
+                                                   self.subblock)
+            with span("fetch"):
+                parts = [totals, lens_t] + [gaps[b, :k] for b, k in enumerate(nsubs)]
+                flat = _fetch(parts + [words[b, :k] for b, k in enumerate(nws)])
+            with span("unpack"):
+                pieces = _split(flat, [2 * rows, 256 * rows] + nsubs + nws)
+                tbs = pieces[0].view(np.int64)
+                lengths = pieces[1].reshape(rows, 256)
+                out = []
+                for b, (_, _, sha, _, _, opt_bits) in enumerate(group):
+                    _check_depth(lengths[b])
+                    self._check_total(int(tbs[b]), opt_bits)
+                    payload = words_to_bytes(pieces[2 + rows + b].view(np.uint32), int(tbs[b]))
+                    out.append(EncodedChunk(payload, lengths[b].copy(), sha,
+                                            pieces[2 + b].view(np.uint32).copy()))
         return out
 
     def _encode_group_device_codebook_v1(self, group: list, metrics: StageMetrics) -> list:
@@ -504,25 +532,33 @@ class GpuChunkCodec(ChunkCodec):
         datas, valid, _ = self._members(group)
         rows = len(group)
         with metrics.timed(Stage.FREQUENCY_ANALYSIS, sum(valid)):
-            x = self._upload(datas)
-            hist_t = histogram_batch(x, valid)
+            with span("upload"):
+                x = self._upload(datas)
+            with span("launch"):
+                hist_t = histogram_batch(x, valid)
         with metrics.timed(Stage.HUFFMAN_TREE_BUILD, sum(valid)):
-            lens_t, codes_t = codebook_batch(hist_t)
-            hist, lengths = torch.cat([hist_t, lens_t]).cpu().numpy().reshape(2, rows, 256)
-            for row in lengths:
-                _check_depth(row)
-            opt_bits = (hist.astype(np.int64) * lengths.astype(np.int64)).sum(1)
+            with span("launch"):
+                lens_t, codes_t = codebook_batch(hist_t)
+            with span("fetch"):
+                hist, lengths = torch.cat([hist_t, lens_t]).cpu().numpy().reshape(2, rows, 256)
+            with span("unpack"):
+                for row in lengths:
+                    _check_depth(row)
+                opt_bits = (hist.astype(np.int64) * lengths.astype(np.int64)).sum(1)
         with metrics.timed(Stage.ENCODING, sum(valid)):
-            words, totals, _ = encode_batch(x, valid, lens_t, codes_t, self.out_words)
-            nws = [self._live_words(int(bits)) for bits in opt_bits]
-            pieces = _split(_fetch([totals] + [words[b, :k] for b, k in enumerate(nws)]),
-                            [2 * rows] + nws)
-            tbs = pieces[0].view(np.int64)
-            out = []
-            for b, (_, _, sha, _, _, _) in enumerate(group):
-                self._check_total(int(tbs[b]), int(opt_bits[b]))
-                payload = words_to_bytes(pieces[1 + b].view(np.uint32), int(tbs[b]))
-                out.append(EncodedChunk(payload, lengths[b].copy(), sha, None))
+            with span("launch"):
+                words, totals, _ = encode_batch(x, valid, lens_t, codes_t, self.out_words)
+            with span("fetch"):
+                nws = [self._live_words(int(bits)) for bits in opt_bits]
+                flat = _fetch([totals] + [words[b, :k] for b, k in enumerate(nws)])
+            with span("unpack"):
+                pieces = _split(flat, [2 * rows] + nws)
+                tbs = pieces[0].view(np.int64)
+                out = []
+                for b, (_, _, sha, _, _, _) in enumerate(group):
+                    self._check_total(int(tbs[b]), int(opt_bits[b]))
+                    payload = words_to_bytes(pieces[1 + b].view(np.uint32), int(tbs[b]))
+                    out.append(EncodedChunk(payload, lengths[b].copy(), sha, None))
         return out
 
     # -- decode -------------------------------------------------------------
@@ -535,15 +571,18 @@ class GpuChunkCodec(ChunkCodec):
             host_decode_routes.add()
             return self._cpu.decode_chunk(payload, meta, header, metrics)
 
-        with metrics.timed(Stage.HUFFMAN_TREE_BUILD):
-            tables = decode_tables_to_torch(
-                *build_decode_tables(meta.code_lengths), self.device
-            )
+        with metrics.timed(Stage.HUFFMAN_TREE_BUILD, span="decode_tables"):
+            host_tables = build_decode_tables(meta.code_lengths)
+            with span("upload"):
+                tables = decode_tables_to_torch(*host_tables, self.device)
         with metrics.timed(Stage.DECODING, meta.original_size):
-            words = _host_tensor(payload_to_words(payload)).to(self.device)
-            gaps = _host_tensor(meta.gap_bits.astype(np.uint32)).to(self.device)
-            out = decode(words, gaps, *tables, header.subblock_symbols, meta.original_size)
-            return out.cpu().numpy()
+            with span("upload"):
+                words = _host_tensor(payload_to_words(payload)).to(self.device)
+                gaps = _host_tensor(meta.gap_bits.astype(np.uint32)).to(self.device)
+            with span("launch"):
+                out = decode(words, gaps, *tables, header.subblock_symbols, meta.original_size)
+            with span("fetch"):
+                return out.cpu().numpy()
 
     def decode_chunk_batch(self, payloads, metas, header, metrics: StageMetrics) -> list:
         """Decode a group of chunks (``TpuChunkCodec.decode_chunk_batch``):
@@ -570,13 +609,18 @@ class GpuChunkCodec(ChunkCodec):
     def _decode_group(self, payloads, metas, header, metrics: StageMetrics) -> list:
         """Batched K3: the members' streams, gap arrays and tables go up in
         one copy, and their outputs come back in one."""
-        with metrics.timed(Stage.HUFFMAN_TREE_BUILD):
+        with metrics.timed(Stage.HUFFMAN_TREE_BUILD, span="decode_tables"):
             tables = [build_decode_tables(m.code_lengths) for m in metas]
         n_outs = [m.original_size for m in metas]
         with metrics.timed(Stage.DECODING, sum(n_outs)):
-            args = self._decode_inputs(payloads, metas, tables, self.device)
-            out = decode_batch(*args, header.subblock_symbols, n_outs).cpu().numpy()
-        return _split(out, n_outs)
+            with span("upload"):
+                args = self._decode_inputs(payloads, metas, tables, self.device)
+            with span("launch"):
+                out = decode_batch(*args, header.subblock_symbols, n_outs)
+            with span("fetch"):
+                out = out.cpu().numpy()
+            with span("unpack"):
+                return _split(out, n_outs)
 
     @staticmethod
     def _decode_inputs(payloads, metas, tables, device) -> tuple:
@@ -626,10 +670,14 @@ class GpuCompressionService(CompressionService):
         return "GPU" if self.device.type == "cuda" else "CPU"
 
     def _run(self, op, input_path, output_path, progress, compressing: bool) -> None:
-        self._stage_metrics = StageMetrics()
-        t0 = time.perf_counter()
-        op(input_path, output_path, progress, self._stage_metrics)
-        self._record(input_path, output_path, compressing, time.perf_counter() - t0)
+        with span("compress" if compressing else "decompress", request=True) as request:
+            self._stage_metrics = StageMetrics()
+            t0 = time.perf_counter()
+            op(input_path, output_path, progress, self._stage_metrics)
+            in_size = self._record(input_path, output_path, compressing,
+                                   time.perf_counter() - t0)
+            if request is not None:
+                request.nbytes = in_size
 
     def compress(self, input_path, output_path, progress: ProgressCallback = None) -> None:
         self._run(self._pipeline.compress, input_path, output_path, progress, True)
@@ -638,12 +686,15 @@ class GpuCompressionService(CompressionService):
         self._run(self._pipeline.decompress, input_path, output_path, progress, False)
 
     def resume_compression(self, input_path, output_path, last_completed_chunk, progress=None) -> None:
-        self._stage_metrics = StageMetrics()
-        t0 = time.perf_counter()
-        self._pipeline.resume_compression(
-            input_path, output_path, last_completed_chunk, progress, self._stage_metrics
-        )
-        self._record(input_path, output_path, True, time.perf_counter() - t0)
+        with span("resume", request=True) as request:
+            self._stage_metrics = StageMetrics()
+            t0 = time.perf_counter()
+            self._pipeline.resume_compression(
+                input_path, output_path, last_completed_chunk, progress, self._stage_metrics
+            )
+            in_size = self._record(input_path, output_path, True, time.perf_counter() - t0)
+            if request is not None:
+                request.nbytes = in_size
 
     def verify_integrity(self, compressed_path, deep: bool = False) -> bool:
         return self._pipeline.verify_integrity(compressed_path, deep=deep)
@@ -657,12 +708,14 @@ class GpuCompressionService(CompressionService):
     def close(self) -> None:
         self._pipeline.close()
 
-    def _record(self, input_path, output_path, compressing, duration_s) -> None:
+    def _record(self, input_path, output_path, compressing, duration_s) -> int:
+        """Adds the call to the MetricsService; returns its input bytes (0
+        where the files cannot be read)."""
         try:
             in_size = os.path.getsize(input_path)
             out_size = os.path.getsize(output_path)
         except OSError:
-            return
+            return 0
         MetricsService.get_instance().add_metrics(
             CompressionMetrics(
                 file_name=os.path.basename(input_path),
@@ -673,3 +726,4 @@ class GpuCompressionService(CompressionService):
                 backend=self.backend,
             )
         )
+        return in_size

@@ -21,6 +21,7 @@ the pipeline groups its jobs by that count.
 from __future__ import annotations
 
 import abc
+import contextlib
 import os
 import struct
 import threading
@@ -34,6 +35,7 @@ from ..config import AppConfig
 from ..core import container as ct
 from ..core.huffman import CorruptChunkError
 from ..models import Stage, StageMetrics
+from ..models.stage_metrics import current_span, span
 from ..utils.checksum import compute_sha256, sha256_digest
 from .base import ProgressCallback
 
@@ -224,37 +226,42 @@ class ChunkedPipeline:
         compressed_offset = done[-1].compressed_offset + done[-1].compressed_size if done else 0
 
         read_lock = threading.Lock()
-        infile = open(input_path, "rb")
-        # memory-mapped reads (reference parity: compression.use-memory-mapped-io)
-        mm = None
-        if self.config.compression.use_memory_mapped_io and file_size > 0:
-            try:
-                import mmap as _mmap
+        with span("open"):
+            infile = open(input_path, "rb")
+            # memory-mapped reads (reference parity: compression.use-memory-mapped-io)
+            mm = None
+            if self.config.compression.use_memory_mapped_io and file_size > 0:
+                try:
+                    import mmap as _mmap
 
-                mm = _mmap.mmap(infile.fileno(), 0, access=_mmap.ACCESS_READ)
-            except (OSError, ValueError):
-                mm = None
+                    mm = _mmap.mmap(infile.fileno(), 0, access=_mmap.ACCESS_READ)
+                except (OSError, ValueError):
+                    mm = None
         partial_fp = None
         try:
             out_mode = "r+b" if resume_from > 0 and os.path.exists(output_path) else "wb"
-            with open(output_path, out_mode) as out:
+            with span("open"):
+                out = open(output_path, out_mode)
+            with out:
                 if out_mode == "r+b":
-                    out.truncate(compressed_offset)
-                    out.seek(compressed_offset)
+                    with span("open"):
+                        out.truncate(compressed_offset)
+                        out.seek(compressed_offset)
                 partial = _partial_path(output_path)
-                if resume_from > 0 and os.path.exists(partial):
-                    partial_fp = open(partial, "r+b")
-                    partial_fp.seek(0, 2)
-                else:
-                    partial_fp = open(partial, "wb")
-                    _write_partial_header(partial_fp, header)
-                    for c in done:
-                        _append_partial_chunk(partial_fp, c)
+                with span("sidecar"):
+                    if resume_from > 0 and os.path.exists(partial):
+                        partial_fp = open(partial, "r+b")
+                        partial_fp.seek(0, 2)
+                    else:
+                        partial_fp = open(partial, "wb")
+                        _write_partial_header(partial_fp, header)
+                        for c in done:
+                            _append_partial_chunk(partial_fp, c)
 
                 def read_chunk(index: int):
                     offset = index * chunk_size
                     n = min(chunk_size, file_size - offset)
-                    with metrics.timed(Stage.FILE_IO, n):
+                    with metrics.timed(Stage.FILE_IO, n, span="read"):
                         if mm is not None:
                             # one explicit copy pins a consistent per-chunk
                             # snapshot: the chunk's SHA-256, codebook, payload
@@ -271,11 +278,14 @@ class ChunkedPipeline:
                                 data = np.frombuffer(infile.read(n), dtype=np.uint8)
                     return index, offset, n, data
 
-                def job(indices: List[int]):
-                    reads = [read_chunk(i) for i in indices]
-                    encs = self.codec.encode_chunk_batch(
-                        [r[3] for r in reads], metrics
-                    )
+                def job(indices: List[int], parent):
+                    with span("job", parent=parent, job=True, chunks=indices) as recording:
+                        reads = [read_chunk(i) for i in indices]
+                        if recording is not None:
+                            recording.nbytes = sum(r[2] for r in reads)
+                        encs = self.codec.encode_chunk_batch(
+                            [r[3] for r in reads], metrics
+                        )
                     return [
                         (i, o, n, e) for (i, o, n, _), e in zip(reads, encs)
                     ]
@@ -302,16 +312,19 @@ class ChunkedPipeline:
                 # bs > 1 the bound is therefore 2 batches (2*bs chunks) of
                 # buffered payloads — the price of overlap.
                 window_jobs = max(2 if bs > 1 else 1, self.window // bs)
+                request = current_span()
                 inflight = deque(
-                    self._executor.submit(job, g) for g in islice(todo, window_jobs)
+                    self._executor.submit(job, g, request)
+                    for g in islice(todo, window_jobs)
                 )
                 while inflight:
-                    results = inflight.popleft().result()
+                    with span("wait"):
+                        results = inflight.popleft().result()
                     nxt = next(todo, None)
                     if nxt is not None:
-                        inflight.append(self._executor.submit(job, nxt))
+                        inflight.append(self._executor.submit(job, nxt, request))
                     for index, offset, n, enc in results:
-                        with metrics.timed(Stage.FILE_IO, len(enc.payload)):
+                        with metrics.timed(Stage.FILE_IO, len(enc.payload), span="write"):
                             out.write(enc.payload)
                         meta = ct.ChunkMeta(
                             index, offset, n, compressed_offset, len(enc.payload),
@@ -319,27 +332,30 @@ class ChunkedPipeline:
                         )
                         compressed_offset += len(enc.payload)
                         done.append(meta)
-                        _append_partial_chunk(partial_fp, meta)
+                        with span("sidecar"):
+                            _append_partial_chunk(partial_fp, meta)
                         if progress is not None:
                             progress(len(done) / max(num_chunks, 1))
                     results = None  # payloads may be zero-copy views over `mm`
 
-                # global checksum = sha256 over per-chunk digests in order
-                # (reference parity: CpuCompressionService.java:101-126)
-                g = sha256_digest()
-                for c in done:
-                    g.update(c.sha256)
-                header.global_sha256 = g.digest()
-                header.chunks = done
+                with span("footer"):
+                    # global checksum = sha256 over per-chunk digests in order
+                    # (reference parity: CpuCompressionService.java:101-126)
+                    g = sha256_digest()
+                    for c in done:
+                        g.update(c.sha256)
+                    header.global_sha256 = g.digest()
+                    header.chunks = done
 
-                with metrics.timed(Stage.HEADER_WRITE):
-                    footer_start = compressed_offset
-                    out.write(ct.serialize_footer(header))
-                    out.write(struct.pack(">q", footer_start))
-                    out.flush()
-            partial_fp.close()
-            partial_fp = None
-            os.remove(_partial_path(output_path))
+                    with metrics.timed(Stage.HEADER_WRITE, span="footer"):
+                        footer_start = compressed_offset
+                        out.write(ct.serialize_footer(header))
+                        out.write(struct.pack(">q", footer_start))
+                        out.flush()
+            with span("footer"):
+                partial_fp.close()
+                partial_fp = None
+                os.remove(_partial_path(output_path))
         finally:
             if mm is not None:
                 try:
@@ -391,7 +407,7 @@ class ChunkedPipeline:
         metrics: Optional[StageMetrics] = None,
     ) -> StageMetrics:
         metrics = metrics if metrics is not None else StageMetrics()
-        with metrics.timed(Stage.FILE_IO):
+        with metrics.timed(Stage.FILE_IO, span="open"):
             header, data_start = ct.read_container(input_path)
         num_chunks = header.num_chunks
         completed = 0
@@ -400,35 +416,42 @@ class ChunkedPipeline:
         # verify AND positional write — no ordering barrier anywhere (the
         # reference serializes ordered batch writes,
         # CpuCompressionService.java:398-490).
-        with open(input_path, "rb") as inf, open(output_path, "wb") as out:
-            in_fd = inf.fileno()
-            out.truncate(header.original_file_size)
+        with contextlib.ExitStack() as files:
+            with span("open"):
+                in_fd = files.enter_context(open(input_path, "rb")).fileno()
+                out = files.enter_context(open(output_path, "wb"))
+                out.truncate(header.original_file_size)
             out_fd = out.fileno()
 
-            def job(group: List[ct.ChunkMeta]):
-                payloads = []
-                for c in group:
-                    with metrics.timed(Stage.FILE_IO, c.compressed_size):
-                        payload = os.pread(
-                            in_fd, c.compressed_size, data_start + c.compressed_offset
-                        )
-                    if len(payload) != c.compressed_size:
-                        raise IOError(f"short read on chunk {c.index}")
-                    payloads.append(payload)
-                datas = self.codec.decode_chunk_batch(payloads, group, header, metrics)
-                for c, data in zip(group, datas):
-                    if data.size != c.original_size:
-                        raise IOError(f"size mismatch in chunk {c.index}")
-                    with metrics.timed(Stage.CHECKSUM_VERIFY, data.size):
-                        digest = compute_sha256(data)  # buffer protocol, no copy
-                        if digest != c.sha256:
-                            raise IOError(
-                                f"Checksum mismatch in chunk {c.index}: "
-                                f"expected {c.sha256.hex()}, got {digest.hex()} "
-                                f"(chunk {c.original_size} B, compressed {c.compressed_size} B)"
+            def job(group: List[ct.ChunkMeta], parent):
+                with span("job", parent=parent, job=True) as recording:
+                    if recording is not None:
+                        recording.nbytes = sum(c.original_size for c in group)
+                        recording.chunks = tuple(c.index for c in group)
+                    payloads = []
+                    for c in group:
+                        with metrics.timed(Stage.FILE_IO, c.compressed_size, span="pread"):
+                            payload = os.pread(
+                                in_fd, c.compressed_size, data_start + c.compressed_offset
                             )
-                    with metrics.timed(Stage.FILE_IO, data.size):
-                        os.pwrite(out_fd, data, c.original_offset)
+                        if len(payload) != c.compressed_size:
+                            raise IOError(f"short read on chunk {c.index}")
+                        payloads.append(payload)
+                    datas = self.codec.decode_chunk_batch(payloads, group, header, metrics)
+                    for c, data in zip(group, datas):
+                        if data.size != c.original_size:
+                            raise IOError(f"size mismatch in chunk {c.index}")
+                        with metrics.timed(Stage.CHECKSUM_VERIFY, data.size, span="verify"):
+                            digest = compute_sha256(data)  # buffer protocol, no copy
+                            if digest != c.sha256:
+                                raise IOError(
+                                    f"Checksum mismatch in chunk {c.index}: "
+                                    f"expected {c.sha256.hex()}, got {digest.hex()} "
+                                    f"(chunk {c.original_size} B, compressed "
+                                    f"{c.compressed_size} B)"
+                                )
+                        with metrics.timed(Stage.FILE_IO, data.size, span="pwrite"):
+                            os.pwrite(out_fd, data, c.original_offset)
                 return len(group)
 
             # group consecutive chunks into codec-sized batches (size 1 for
@@ -439,9 +462,11 @@ class ChunkedPipeline:
                 list(header.chunks[i : i + bs])
                 for i in range(0, len(header.chunks), bs)
             ]
-            futures = [self._executor.submit(job, g) for g in groups]
+            request = current_span()
+            futures = [self._executor.submit(job, g, request) for g in groups]
             for fut in futures:
-                completed += fut.result()
+                with span("wait"):
+                    completed += fut.result()
                 if progress is not None:
                     progress(completed / max(num_chunks, 1))
         return metrics

@@ -1,0 +1,8 @@
+"""Leaf-span seconds of all threads (``wait`` left out) over the restore
+calls' seconds: how many host threads worked at once."""
+
+from dczbench.spans import host_overlap
+
+
+def read(run):
+    return host_overlap(run, "restore")
