@@ -225,13 +225,14 @@ class StageMetrics:
             acc.count += 1
             acc.bytes_processed += int(bytes_processed)
 
-    def timed(self, stage: Stage, nbytes: int = 0, span: Optional[str] = None):
+    def timed(self, stage: Stage, nbytes: int = 0, span: Optional[str] = None, parent=None):
         """Time a block into ``stage``; while a profiler records, also a span
         named ``span`` (by default the stage's, :data:`STAGE_SPANS`) whose
-        duration is the one summed."""
+        duration is the one summed.  ``parent`` is as :func:`span` takes it."""
         if not _profiler._is_profiler_enabled:
             return _Timed(self, stage, nbytes)
-        return _Recording(span or STAGE_SPANS[stage], stage, nbytes, self, None, False, False, ())
+        return _Recording(span or STAGE_SPANS[stage], stage, nbytes, self, parent, False, False,
+                          ())
 
     def as_dict(self) -> dict:
         with self._lock:

@@ -296,7 +296,8 @@ def compress_multihost(
     (``multihost.py:230``): every rank encodes its round-robin stripe through
     its codec's ``encode_chunk_batch`` in groups of ``batch_chunks``
     (``backend="gpu"``: :class:`GpuChunkCodec` on ``mesh.device``, whose
-    groups run each batched kernel once; ``"cpu"``: the host codec), the
+    groups run each batched kernel once and hash their chunks on the
+    codec's helper thread; ``"cpu"``: the host codec), the
     chunks' metadata is all-gathered over the gloo group, every rank writes
     its payloads at their global offsets, and rank 0 appends the footer.
     With several local devices, the GPU backend and device-codebook v2 (the
@@ -307,9 +308,10 @@ def compress_multihost(
 
     Every rank of the mesh calls this together.  Payloads spill to a file of
     the rank's own beside the output while the stripe encodes, so memory
-    stays bounded by a group of chunks; the spill file is removed whatever
-    happens.  ``progress`` (0..1 over this rank's stripe) and ``metrics``
-    (:class:`StageMetrics`) mirror the single-process service."""
+    stays bounded by a group of chunks; the spill file is removed and the
+    codec closed whatever happens.  ``progress`` (0..1 over this rank's
+    stripe) and ``metrics`` (:class:`StageMetrics`) mirror the
+    single-process service."""
     from ..config import load_config
     from ..models import Stage, StageMetrics
 
@@ -378,6 +380,7 @@ def compress_multihost(
         with metrics.timed(Stage.FILE_IO, int(sizes[: len(local)].sum())):
             spill_to_output(output_path, spill_path, local, sizes[: len(local)], offsets)
     finally:
+        codec.close()
         if os.path.exists(spill_path):
             os.remove(spill_path)
     _barrier(mesh)  # every payload is written
@@ -478,6 +481,7 @@ def decompress_multihost(
             if progress is not None:
                 progress(min(g0 + len(gmetas), len(local)) / max(len(local), 1))
     finally:
+        codec.close()
         os.close(in_fd)
         os.close(out_fd)
     _barrier(mesh)  # every chunk is written

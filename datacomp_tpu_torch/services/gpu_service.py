@@ -16,6 +16,9 @@ Port of ``datacomp_tpu/services/tpu_service.py`` to PyTorch and CUDA:
 * decode: raw-stored chunks pass through; v2 chunks with codes of at most
   16 bits run the gap-array decoder kernel K3; v1 chunks and deeper codebooks
   go to the host codec through a counted route;
+* the chunk's SHA-256, in either mode: on a helper thread of the codec's
+  own from :data:`INLINE_HASH_BYTES` up, while the worker goes on with the
+  prepass and the device encode, joined when the chunk is built;
 * availability: a 1 KB histogram on the device (kernel K1);
 * batches (``device.batch_chunks``, auto 4 on a CUDA device): the pipeline
   hands the codec groups of chunks, and each group's device members run
@@ -34,6 +37,7 @@ from __future__ import annotations
 
 import os
 import time
+from concurrent.futures import Future, ThreadPoolExecutor, wait
 from typing import Optional
 
 import numpy as np
@@ -66,7 +70,7 @@ from ..ops import (
     payload_to_words,
     words_to_bytes,
 )
-from ..models.stage_metrics import span
+from ..models.stage_metrics import current_span, span
 from ..ops._build import LaunchCounter
 from ..utils.checksum import compute_sha256
 from .base import CompressionService, FrequencyService, ProgressCallback
@@ -76,6 +80,16 @@ from .pipeline import ChunkCodec, ChunkedPipeline, EncodedChunk
 #: chunks that bypassed the device because of their codebook
 host_encode_routes = LaunchCounter()  # codes deeper than the encoder's 32 bits
 host_decode_routes = LaunchCounter()  # v1 container or codes deeper than 16 bits
+
+#: chunks of fewer bytes are hashed on their worker.  On the H100 host
+#: (gVisor, 8 vCPUs) handing a hash to a helper thread and joining it costs
+#: 20-36 us at the median (a futex wake each way), and SHA-256 runs at
+#: 1.1-1.3 GB/s: 64 KiB takes 52-60 us, the smallest power of two whose hash
+#: outlasts the median hand-off in every reading (32 KiB takes 27-30 us).
+#: The worker pays only the submit and, if the hash is still running, the
+#: join, so from here up the hand-off takes time off the critical path.
+#: ``tools/hash_handoff.py`` measures both.
+INLINE_HASH_BYTES = 64 << 10
 
 
 def pick_device(platform: str = "any", index: int = -1) -> torch.device:
@@ -183,6 +197,16 @@ class GpuFrequencyService(FrequencyService):
         return f"GPU Frequency Analysis ({name})"
 
 
+def _settle(shas: list) -> None:
+    """Cancel the hashes of ``shas`` (digests, or futures of them) that have
+    not started and wait for those running: no job ends with its hash under
+    way, whatever it raised."""
+    pending = [f for f in shas if isinstance(f, Future)]
+    for f in pending:
+        f.cancel()
+    wait(pending)
+
+
 def resolve_batch_chunks(setting: int, device) -> int:
     """Chunks a device call takes (``ChunkCodec.batch_chunks``):
     ``device.batch_chunks`` when it is set, else the JAX service's auto rule
@@ -242,16 +266,51 @@ class GpuChunkCodec(ChunkCodec):
         # an optimal code spends at most H + 1 <= 9 bits a byte on the chunk
         # it was built from; the encode raises if a stream ever exceeds this
         self.out_words = (9 * self.padded_size + 31) // 32 + 2
+        # the chunks' SHA-256, one after another beside the workers: on the
+        # H100 host four at once ran no faster and their rates spread wider;
+        # not the pipeline's pool, whose workers wait on these
+        self._hashes = ThreadPoolExecutor(max_workers=1, thread_name_prefix="dcz-sha256")
 
     @property
     def batch_chunks(self) -> int:
         return resolve_batch_chunks(self.config.device.batch_chunks, self.device)
 
+    def close(self) -> None:
+        """Shut the hash pool down."""
+        self._hashes.shutdown(wait=True)
+
     # -- encode -------------------------------------------------------------
 
-    def _host_prepass(self, data: np.ndarray, metrics: StageMetrics):
+    def _start_hash(self, data: np.ndarray, metrics: StageMetrics):
+        """The chunk's SHA-256, started: a future on the hash pool, whose
+        ``sha256`` span takes the span open on this thread (the job) as its
+        parent; a chunk under :data:`INLINE_HASH_BYTES` is hashed here and
+        its digest returned."""
+        if data.size < INLINE_HASH_BYTES:
+            return self._hash(data, metrics, None)
+        return self._hashes.submit(self._hash, data, metrics, current_span())
+
+    @staticmethod
+    def _hash(data: np.ndarray, metrics: StageMetrics, parent) -> bytes:
+        with metrics.timed(Stage.CHECKSUM_COMPUTE, data.size, parent=parent):
+            return compute_sha256(data)
+
+    @staticmethod
+    def _joined(encs: list) -> list:
+        """``encs`` with each digest still a future read from it, the wait
+        for them a ``wait`` span (a hash's error raises here)."""
+        pending = [e for e in encs if isinstance(e.sha256, Future)]
+        if pending:
+            with span("wait"):
+                for e in pending:
+                    e.sha256 = e.sha256.result()
+        return encs
+
+    def _host_prepass(self, data: np.ndarray, metrics: StageMetrics, sha=None):
         """SHA-256, host histogram, host codebook and the raw-store decision
-        (``TpuChunkCodec._host_prepass``).
+        (``TpuChunkCodec._host_prepass``).  ``sha`` is the chunk's digest, or
+        the future of one (:meth:`_start_hash`), and passes through to the
+        result; without it the hash runs here first.
 
         Returns ``(sha, lengths, codes, opt_bits, finished)``; ``finished`` is
         a complete :class:`EncodedChunk` (empty input, or an incompressible
@@ -265,8 +324,8 @@ class GpuChunkCodec(ChunkCodec):
         comp = self.config.compression
         device_codebook = comp.codebook_mode == "device"
         v2 = comp.format_version >= 2
-        with metrics.timed(Stage.CHECKSUM_COMPUTE, n):
-            sha = compute_sha256(data)
+        if sha is None:
+            sha = self._hash(data, metrics, None)
         if n == 0:
             return sha, None, None, 0, EncodedChunk(b"", np.zeros(256, np.int32), sha, None)
         if device_codebook and not v2:
@@ -315,12 +374,17 @@ class GpuChunkCodec(ChunkCodec):
         return x
 
     def encode_chunk(self, data: np.ndarray, metrics: StageMetrics) -> EncodedChunk:
-        sha, lengths, codes, opt_bits, finished = self._host_prepass(data, metrics)
-        if finished is not None:
-            return finished
-        if self._host_route(lengths):
-            return self._cpu.encode_chunk(data, metrics)
-        return self._encode_prepared(data, sha, lengths, codes, opt_bits, metrics)
+        sha = self._start_hash(data, metrics)
+        try:
+            _, lengths, codes, opt_bits, enc = self._host_prepass(data, metrics, sha)
+            if enc is None:
+                if self._host_route(lengths):
+                    enc = self._cpu.encode_chunk(data, metrics)
+                else:
+                    enc = self._encode_prepared(data, sha, lengths, codes, opt_bits, metrics)
+            return self._joined([enc])[0]
+        finally:
+            _settle([sha])
 
     def _encode_prepared(self, data, sha, lengths, codes, opt_bits, metrics) -> EncodedChunk:
         """One chunk on the device, after its host prepass."""
@@ -416,17 +480,28 @@ class GpuChunkCodec(ChunkCodec):
     def encode_chunk_batch(self, datas, metrics: StageMetrics) -> list:
         """Encode a group of chunks (``TpuChunkCodec.encode_chunk_batch``).
 
-        Each member's host prepass runs first.  Empty and raw-stored members
+        Every member's hash starts first, then each member's host prepass
+        runs; the digests are joined once the members are built.  Empty and
+        raw-stored members
         are then finished, and a host codebook deeper than 32 bits takes the
         counted host route; every other member joins one device group, whose
         kernels each launch once, with one copy back (two in device-codebook
         v1).  A group of one takes the per-chunk path."""
         if len(datas) == 1 or self.batch_chunks <= 1:
             return [self.encode_chunk(d, metrics) for d in datas]
+        shas = [self._start_hash(d, metrics) for d in datas]
+        try:
+            return self._joined(self._encode_members(datas, shas, metrics))
+        finally:
+            _settle(shas)
+
+    def _encode_members(self, datas: list, shas: list, metrics: StageMetrics) -> list:
+        """The group's members, each digest as :meth:`_host_prepass` passes
+        it through."""
         results: list = [None] * len(datas)
         group = []  # (index, data, sha, lengths, codes, opt_bits)
         for i, data in enumerate(datas):
-            sha, lengths, codes, opt_bits, finished = self._host_prepass(data, metrics)
+            sha, lengths, codes, opt_bits, finished = self._host_prepass(data, metrics, shas[i])
             if finished is not None:
                 results[i] = finished
             elif self._host_route(lengths):
@@ -707,6 +782,7 @@ class GpuCompressionService(CompressionService):
 
     def close(self) -> None:
         self._pipeline.close()
+        self._codec.close()
 
     def _record(self, input_path, output_path, compressing, duration_s) -> int:
         """Adds the call to the MetricsService; returns its input bytes (0

@@ -62,6 +62,9 @@ class ChunkCodec(abc.ABC):
     #: jobs accordingly.
     batch_chunks: int = 1
 
+    def close(self) -> None:
+        """Release what the codec holds (nothing, by default)."""
+
     @abc.abstractmethod
     def encode_chunk(self, data: np.ndarray, metrics: StageMetrics) -> EncodedChunk:
         ...

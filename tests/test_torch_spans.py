@@ -15,7 +15,7 @@ from torch.profiler import ProfilerActivity, profile  # noqa: E402
 
 from datacomp_tpu_torch.config import load_config  # noqa: E402
 from datacomp_tpu_torch.models import Stage, StageMetrics, stage_metrics  # noqa: E402
-from datacomp_tpu_torch.services import GpuCompressionService  # noqa: E402
+from datacomp_tpu_torch.services import GpuCompressionService, gpu_service  # noqa: E402
 from datacomp_tpu_torch.utils.testdata import generate_bytes  # noqa: E402
 
 REQUESTS = ("compress", "decompress")
@@ -127,6 +127,40 @@ def test_stage_sums_are_their_spans(traced):
                 continue
             assert round(sums[stage.name]["ms"] * 1e6) == got, (req, stage)
             assert sums[stage.name]["count"] == len(mine)
+
+
+def _compress_spans(traced):
+    rid = _requests(traced["spans"])["compress"].request
+    return [s for s in traced["spans"] if s.request == rid]
+
+
+def test_helper_hashes_carry_their_job(traced):
+    """A chunk of ``INLINE_HASH_BYTES`` or more (each chunk here, the
+    300,000-byte tail too) is hashed on the codec's helper thread, in a
+    ``sha256`` span whose parent is its job, with the job's request and job
+    ids; a smaller one on its job's thread.  CHECKSUM_COMPUTE sums what its
+    spans do, over both threads."""
+    mine = _compress_spans(traced)
+    by_id = {s.span_id: s for s in mine}
+    hashes = [s for s in mine if s.name == "sha256"]
+    assert sorted(s.nbytes for s in hashes) == [300_000, 1 << 20, 1 << 20]
+    for s in hashes:
+        job = by_id[s.parent]
+        assert job.name == "job" and (s.request, s.job) == (job.request, job.job)
+        assert (s.thread != job.thread) == (s.nbytes >= gpu_service.INLINE_HASH_BYTES)
+    assert (round(traced["sums"]["compress"]["CHECKSUM_COMPUTE"]["ms"] * 1e6)
+            == sum(s.end_ns - s.start_ns for s in hashes))
+
+
+def test_hash_joins_wait_under_their_job(traced):
+    """Each job that handed a hash over joins it in one ``wait`` span on its
+    own thread, whose parent is the job."""
+    mine = _compress_spans(traced)
+    by_id = {s.span_id: s for s in mine}
+    handed = {s.parent for s in mine if s.name == "sha256" and s.thread != by_id[s.parent].thread}
+    joins = [s for s in mine if s.name == "wait" and by_id[s.parent].name == "job"]
+    assert handed and sorted(w.parent for w in joins) == sorted(handed)
+    assert all(w.thread == by_id[w.parent].thread for w in joins)
 
 
 def test_chrome_events_match_the_spans(traced):
