@@ -6,10 +6,12 @@ Silesia-sized files from them.
 A file of kind K is built chunk by chunk from sub-block-sized pieces of a
 pool of K's bytes; which pieces, and the pools, follow the traffic file's
 fixed corpus seed alone.  The run's seed then only relabels the 256 byte
-values (a permutation a file) and reorders the whole sub-blocks inside each
-chunk, keeping a chunk's short tail in place.  Each chunk's histogram is so
-the same up to relabelling for every seed: its code-length multiset, coded
-bits, raw-store decision, gap-array size and the device's work are fixed.
+values (a permutation a file).  Each chunk's histogram is so the same up to
+relabelling for every seed: its code-length multiset, coded bits, raw-store
+decision and gap-array size are fixed, and so is where in the chunk each
+code length falls (up to ties), which sets the device's work: an order of
+the sub-blocks drawn from the seed would move the decode kernel's time by
+up to a sixth from seed to seed.
 """
 
 from __future__ import annotations
@@ -279,14 +281,13 @@ def base_pieces(traffic: dict, index: int, chunk_bytes: int, subblock: int) -> l
 
 
 def make_file(pool: np.ndarray, pieces: list, subblock: int, rng) -> np.ndarray:
-    """One file's bytes: each chunk's sub-blocks in an order drawn from
-    ``rng``, its tail last, every byte relabelled by a permutation from
-    ``rng``."""
+    """One file's bytes: each chunk's sub-blocks in their drawn order, its
+    tail last, every byte relabelled by a permutation from ``rng``."""
     windows = np.lib.stride_tricks.sliding_window_view(pool, subblock)
     label = rng.permutation(256).astype(np.uint8)
     parts = []
     for offsets, tail_at, tail in pieces:
-        parts.append(windows[offsets[rng.permutation(offsets.size)]].reshape(-1))
+        parts.append(windows[offsets].reshape(-1))
         parts.append(pool[tail_at : tail_at + tail])
     return label[np.concatenate(parts)]
 

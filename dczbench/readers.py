@@ -21,12 +21,14 @@ class Window:
 
     ``stage_ms[phase][STAGE]``: the program's StageMetrics summed over the
     window's calls of ``phase`` ("compress", "restore"); ``phase_bytes``:
-    input bytes compressed and bytes restored; ``chunks``: the reference's
+    input bytes compressed and bytes restored; ``phase_s``: the seconds of
+    those calls, each from its start to its return; ``chunks``: the reference's
     expected chunks of every request served; ``trace``: a
     :class:`dczbench.trace.Trace`, or None in an untraced run."""
 
     stage_ms: dict = field(default_factory=lambda: {"compress": {}, "restore": {}})
     phase_bytes: dict = field(default_factory=lambda: {"compress": 0, "restore": 0})
+    phase_s: dict = field(default_factory=lambda: {"compress": 0.0, "restore": 0.0})
     chunks: list = field(default_factory=list)
     trace: object = None
 
@@ -46,6 +48,12 @@ def stage_ms_per_mb(run: Window, phase: str, stages: tuple):
     if not mb or not any(s in run.stage_ms[phase] for s in stages):
         return None
     return sum(run.stage_ms[phase].get(s, 0.0) for s in stages) / mb
+
+
+def rate_mb_per_s(run: Window, phase: str):
+    """``phase``'s bytes (1e6 a MB) over the seconds of its calls."""
+    s = run.phase_s[phase]
+    return run.phase_bytes[phase] / 1e6 / s if s > 0 and run.phase_bytes[phase] else None
 
 
 def copy_ms_per_mb(run: Window, phase: str):

@@ -1,11 +1,16 @@
-"""The `.dcz` format 2 worked out from the input bytes alone.
+"""The `.dcz` formats 1 and 2 worked out from the input bytes alone.
 
 What a file's container must hold, chunk by chunk: its SHA-256, its code
 lengths under the configuration's codebook rule, the raw-store decision, the
 canonical-Huffman payload (32-bit words, most significant bit first, cut to
-whole bytes) and the gap array (the start bit of every sub-block).  Written
-from the format's description (``docs/FILE_FORMAT.md``) with NumPy, and
-sharing no code with the program under test.
+whole bytes) and, in format 2, the gap array (the start bit of every
+sub-block).  Written from the format's description
+(``docs/FILE_FORMAT.md``) with NumPy, and sharing no code with the program
+under test.
+
+Format 1 is the reference's own container: its footer has no sub-block
+field, its chunk records no gap count and no gap array, and it has no raw
+store: every chunk is coded, even where coding does not shrink it.
 
 Codebook rules (the configuration file names one):
 
@@ -17,9 +22,19 @@ Codebook rules (the configuration file names one):
   at most 0.5 % more bits than the optimal code (none if none does); a cap
   below the optimal depth takes package-merge over (count, symbol), a leaf
   taken before a package of equal weight.
+* ``java``: the reference's tree build.  The present symbols are offered in
+  symbol order to a binary min-heap that sifts as ``java.util.PriorityQueue``
+  does (``siftUp`` on offer; on poll the last element ``siftDown`` from the
+  root, to the smaller child, the left one on a tie, while that child is
+  strictly smaller), ordered by (count, symbol), where an internal node
+  carries the symbol -1, so it comes before a leaf of equal count and ties
+  with another internal node.  Two polls make a node of their summed count,
+  offered back, until one node is left; the lengths are the leaves' depths.
+  One present symbol gets a 1-bit code, none gets all zeros.  Equally
+  optimal, but its ties fall otherwise than ``optimal``'s.
 
-A chunk whose coded size is at least its size in bits is stored raw: its
-bytes, all-zero lengths and no gap array.
+In format 2 a chunk whose coded size is at least its size in bits is stored
+raw: its bytes, all-zero lengths and no gap array.
 """
 
 from __future__ import annotations
@@ -33,7 +48,7 @@ MAGIC = 0x44435A46
 ALPHABET = 256
 CAP_TIERS = (8, 10, 16)
 CAP_BUDGET = 0.005
-CODEBOOK_RULES = ("optimal", "optimal_auto_cap")
+CODEBOOK_RULES = ("optimal", "optimal_auto_cap", "java")
 
 
 # -- code lengths --------------------------------------------------------------
@@ -64,6 +79,52 @@ def _huffman_depths(weights: list) -> list:
         node_w[made] = node_w[pair[0]] + node_w[pair[1]]
         parent[pair[0]] = parent[pair[1]] = made
         made += 1
+    depth = [0] * (2 * n - 1)
+    for k in range(2 * n - 3, -1, -1):
+        depth[k] = depth[parent[k]] + 1
+    return depth[:n]
+
+
+def _java_heap_depths(counts: list) -> list:
+    """Leaf depths of the reference's tree build over ``counts``, the
+    present symbols' counts in symbol order (see the module's ``java``)."""
+    n = len(counts)
+    parent = [0] * (2 * n - 1)
+    heap: list = []  # (count, symbol or -1, node); ordered by the first two
+
+    def less(a, b) -> bool:
+        return a[0] < b[0] or (a[0] == b[0] and a[1] < b[1])
+
+    def offer(e) -> None:
+        k = len(heap)
+        heap.append(e)
+        while k > 0 and less(e, heap[(k - 1) // 2]):
+            heap[k] = heap[(k - 1) // 2]
+            k = (k - 1) // 2
+        heap[k] = e
+
+    def poll():
+        top, last = heap[0], heap.pop()
+        size = len(heap)
+        if size:
+            k = 0
+            while 2 * k + 1 < size:
+                child = 2 * k + 1
+                if child + 1 < size and less(heap[child + 1], heap[child]):
+                    child += 1
+                if not less(heap[child], last):
+                    break
+                heap[k] = heap[child]
+                k = child
+            heap[k] = last
+        return top
+
+    for leaf, count in enumerate(counts):
+        offer((count, leaf, leaf))
+    for made in range(n, 2 * n - 1):
+        a, b = poll(), poll()
+        parent[a[2]] = parent[b[2]] = made
+        offer((a[0] + b[0], -1, made))
     depth = [0] * (2 * n - 1)
     for k in range(2 * n - 3, -1, -1):
         depth[k] = depth[parent[k]] + 1
@@ -112,6 +173,10 @@ def code_lengths(hist: np.ndarray, rule: str) -> np.ndarray:
     if syms.size == 1:
         lengths[syms[0]] = 1
     if syms.size <= 1:
+        return lengths
+    if rule == "java":
+        present = np.flatnonzero(hist > 0)
+        lengths[present] = _java_heap_depths(hist[present].tolist())
         return lengths
     w = weights.tolist()
     lengths[syms] = _huffman_depths(w)
@@ -184,13 +249,14 @@ def encode_payload(x: np.ndarray, lengths: np.ndarray, codes: np.ndarray, subblo
     return payload, total, gaps
 
 
-def expected_chunk(x: np.ndarray, rule: str, subblock: int) -> dict:
-    """What format 2 stores for the chunk ``x`` (uint8)."""
+def expected_chunk(x: np.ndarray, rule: str, subblock: int, version: int = 2) -> dict:
+    """What format ``version`` stores for the chunk ``x`` (uint8); format 1
+    takes ``subblock`` 0."""
     sha = hashlib.sha256(x).digest()
     hist = np.bincount(x, minlength=ALPHABET).astype(np.int64)
     lengths = code_lengths(hist, rule)
     bits = int(hist @ lengths)
-    if bits >= 8 * x.size:
+    if version >= 2 and bits >= 8 * x.size:
         return {"sha256": sha, "raw": True, "n": int(x.size),
                 "lengths": np.zeros(ALPHABET, np.int64),
                 "size": int(x.size), "payload_sha256": sha,
@@ -205,17 +271,17 @@ def expected_chunk(x: np.ndarray, rule: str, subblock: int) -> dict:
 
 
 def expected_file(data: np.ndarray, chunk_bytes: int, rule: str, subblock: int,
-                  pool=None) -> dict:
-    """The container's expected contents for the file ``data``: its size,
-    chunk size, the file's own SHA-256 (for the restore), the global SHA-256
-    (over the chunks' digests in order) and each
-    chunk's :func:`expected_chunk`.  ``pool`` (an executor) works the chunks
-    out side by side."""
+                  pool=None, version: int = 2) -> dict:
+    """The format-``version`` container's expected contents for the file
+    ``data``: its size, chunk size, sub-block (0 in format 1), the file's own
+    SHA-256 (for the restore), the global SHA-256 (over the chunks' digests
+    in order) and each chunk's :func:`expected_chunk`.  ``pool`` (an
+    executor) works the chunks out side by side."""
     views = [data[o : o + chunk_bytes] for o in range(0, data.size, chunk_bytes)]
     if pool is None:
-        chunks = [expected_chunk(v, rule, subblock) for v in views]
+        chunks = [expected_chunk(v, rule, subblock, version) for v in views]
     else:
-        chunks = list(pool.map(lambda v: expected_chunk(v, rule, subblock), views))
+        chunks = list(pool.map(lambda v: expected_chunk(v, rule, subblock, version), views))
     whole = hashlib.sha256()
     for c in chunks:
         whole.update(c["sha256"])

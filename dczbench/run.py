@@ -10,8 +10,9 @@ by name in ``dczbench/metrics/``.  The run drives the port's own service,
 ``compress`` of each file of the traffic's request list, then ``decompress``
 of its ``.dcz``, back to back, on real files under ``TMPDIR``; the window is
 that list, closed early only if ``--seconds`` runs out first.  ``--trace 0``
-prints the cell's end-to-end metrics, ``--trace 1`` its per-layer metrics
-from a ``torch.profiler`` trace of the window.  ``--control`` runs the
+prints the cell's end-to-end metrics (under a ``torch.profiler`` trace of
+the window where one of them is read from the device's trace), ``--trace 1``
+its per-layer metrics from such a trace.  ``--control`` runs the
 configuration's control (the program with one of its guarantees broken),
 which the judge must find incorrect.
 """
@@ -72,6 +73,13 @@ def end_to_end_metrics(bench: dict, workload: str) -> list:
     return [m for m in bench["end_to_end"] if workload in m.get("workloads", (workload,))]
 
 
+def kernel_ms_per_gb(tr, in_bytes: int):
+    """The device's kernel time in the traced window (memory copies and sets
+    left out), ms per GB (1e9 bytes) of input served; None with no kernel."""
+    t = tr.device_s(category="kernel") if tr is not None and in_bytes else 0.0
+    return t * 1e3 / (in_bytes / 1e9) if t > 0 else None
+
+
 def service_config(config_doc: dict, control: bool):
     """The program's AppConfig from the configuration's keys (and, for the
     control, its control's keys on top)."""
@@ -93,23 +101,37 @@ def schedule(traffic: dict) -> list:
     return list(range(len(traffic["files"]))) * int(traffic["rounds"])
 
 
-def container_sizes(data, name: str, chunk_bytes: int, subblock: int, rule: str) -> tuple:
-    """(bytes of the format-2 `.dcz`, bytes of its progress sidecar) of the
-    file ``data``: each chunk's payload from its histogram and the codebook
-    rule's lengths (raw where coding does not shrink it), and the footer and
-    sidecar from the format's fixed fields and gap arrays."""
+def container_subblock(compression) -> int:
+    """The sub-block a container of the configuration records: its
+    ``subblock_symbols`` in format 2, none (0) in format 1."""
+    return compression.subblock_symbols if compression.format_version >= 2 else 0
+
+
+def container_sizes(data, name: str, chunk_bytes: int, subblock: int, rule: str,
+                    version: int = 2) -> tuple:
+    """(bytes of the format-``version`` `.dcz`, bytes of its progress
+    sidecar) of the file ``data``: each chunk's payload from its histogram
+    and the codebook rule's lengths (in format 2 raw where coding does not
+    shrink it), and the footer and sidecar from their fixed fields and gap
+    arrays.  Format 1's footer has no sub-block field and its chunk records
+    no gap count and no gap array; the sidecar's records always carry a gap
+    count, and a gap array only in format 2."""
     from .reference import code_lengths
 
-    payload = meta = 0
+    v2 = version >= 2
+    record = 4 + 8 + 4 + 8 + 4 + 32 + 512  # a chunk's fixed fields, digest and lengths
+    payload = footer = sidecar = 0
     for off in range(0, data.size, chunk_bytes):
         x = data[off : off + chunk_bytes]
         hist = np.bincount(x, minlength=256)
         bits = int(hist @ code_lengths(hist, rule))
-        raw = bits >= 8 * x.size
+        raw = v2 and bits >= 8 * x.size
         payload += x.size if raw else (bits + 7) // 8
-        meta += 4 + 8 + 4 + 8 + 4 + 32 + 512 + 4 + (0 if raw else 4 * -(-x.size // subblock))
+        gaps = 4 * -(-x.size // subblock) if v2 and not raw else 0
+        footer += record + (4 + gaps if v2 else 0)
+        sidecar += record + 4 + gaps
     head = 4 * 3 + len(name.encode()) + 8 + 8 + 4
-    return payload + head + 32 + 4 + 4 + meta + 8, head + 4 + meta
+    return payload + head + 32 + (4 if v2 else 0) + 4 + footer + 8, head + 4 + sidecar
 
 
 def reckon_writes(traffic: dict, requests: list, sizes: list) -> dict:
@@ -261,7 +283,11 @@ def run_cell(workload: str, bench: dict, config_doc: dict, traffic: dict, seed: 
     marks = {"imports": host.process_age_s()}
     cfg = service_config(config_doc, control)
     chunk_bytes = cfg.chunk_size_bytes
+    version = cfg.compression.format_version
+    # the traffic is laid out in the configured sub-blocks whatever the
+    # format, so every format serves the same bytes for a seed
     subblock = cfg.compression.subblock_symbols
+    stored_subblock = container_subblock(cfg.compression)
     requests = schedule(traffic)
     # the request whose `.dcz` the judge restores with one stored digest flipped
     judge_rng = np.random.default_rng([seed, 1])
@@ -270,7 +296,8 @@ def run_cell(workload: str, bench: dict, config_doc: dict, traffic: dict, seed: 
         f"{' (control: ' + config_doc['control']['why'] + ')' if control else ''}")
     datas = corpus.make_corpus(traffic, seed, chunk_bytes, subblock)
     marks["corpus_made"] = host.process_age_s()
-    sizes = [container_sizes(d, f["name"], chunk_bytes, subblock, config_doc["codebook_rule"])
+    sizes = [container_sizes(d, f["name"], chunk_bytes, stored_subblock,
+                             config_doc["codebook_rule"], version)
              for d, f in zip(datas, traffic["files"])]
     writes = reckon_writes(traffic, requests, sizes)
     log(f"reckoned writes {writes}")
@@ -296,14 +323,20 @@ def run_cell(workload: str, bench: dict, config_doc: dict, traffic: dict, seed: 
         ops.reset_counters()
         gpu_service.host_encode_routes.reset()
         gpu_service.host_decode_routes.reset()
+        # the program's set-up ends here; the host probe and the profiler's
+        # start are the harness's own, and a cell's trace-0 run starts the
+        # profiler only where an end-to-end metric is read from the trace
+        setup_s = host.process_age_s()
+        marks["warmed_up"] = setup_s
         facts = host.Facts(_smi_index() if cuda else None)
-        profiler = _profiler(torch, cuda) if trace else None
+        e2e = end_to_end_metrics(bench, workload)
+        traced = trace or any(m["source"] == "device_trace" for m in e2e)
+        profiler = _profiler(torch, cuda, host_side=trace) if traced else None
         if profiler is not None:
             profiler.start()
         mark = torch.profiler.record_function if trace else _no_mark
         served = Served()
-        setup_s = host.process_age_s()
-        marks["warmed_up"] = setup_s
+        marks["window"] = host.process_age_s()
         with mark("window"):
             window_s = serve(svc, paths, requests, workdir, mark, served, judge.capture,
                              seconds, keep)
@@ -336,9 +369,10 @@ def run_cell(workload: str, bench: dict, config_doc: dict, traffic: dict, seed: 
         t_judge = time.perf_counter()
         rule = config_doc["codebook_rule"]
         with ThreadPoolExecutor(max_workers=max(1, min(8, len(os.sched_getaffinity(0))))) as pool:
-            expected = [expected_file(d, chunk_bytes, rule, subblock, pool) for d in datas]
+            expected = [expected_file(d, chunk_bytes, rule, stored_subblock, pool, version)
+                        for d in datas]
         faults = judge.judge(served.captures, expected, [f["name"] for f in traffic["files"]],
-                             mtimes, cfg.compression.format_version)
+                             mtimes, version)
         faults["verify_faults"] = faults_verify
         judged_s = time.perf_counter() - t_judge
         del datas
@@ -363,6 +397,8 @@ def run_cell(workload: str, bench: dict, config_doc: dict, traffic: dict, seed: 
             window = readers.Window(stage_ms=served.stage_ms,
                                     phase_bytes={"compress": served.in_bytes,
                                                  "restore": served.out_bytes},
+                                    phase_s={"compress": served.compress_s,
+                                             "restore": served.restore_s},
                                     chunks=[c for i, _ in served.captures
                                             for c in expected[i]["chunks"]],
                                     trace=tr)
@@ -381,10 +417,11 @@ def run_cell(workload: str, bench: dict, config_doc: dict, traffic: dict, seed: 
         else:
             values = {"compress_MBps": served.in_bytes / 1e6 / served.compress_s,
                       "decompress_MBps": served.out_bytes / 1e6 / served.restore_s,
-                      "setup_s": setup_s}
-            units = {m["name"]: m["unit"] for m in end_to_end_metrics(bench, workload)}
+                      "setup_s": setup_s,
+                      "kernel_ms_per_GB": kernel_ms_per_gb(tr, served.in_bytes)}
+            units = {m["name"]: m["unit"] for m in e2e}
             result["metrics"] = {k: {"value": values[k], "unit": u} for k, u in units.items()
-                                 if k in values}
+                                 if values.get(k) is not None}
             result["device"] = device_info
         io_end = host.io_bytes()
         log("this run wrote "
@@ -438,10 +475,13 @@ def _no_mark(_name: str):
     return contextlib.nullcontext()
 
 
-def _profiler(torch, cuda: bool):
+def _profiler(torch, cuda: bool, host_side: bool = True):
+    """The window's profiler; without ``host_side`` it records the device's
+    operations alone (all a trace-0 run reads from it)."""
     from torch.profiler import ProfilerActivity, profile
 
-    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
+    acts = ([ProfilerActivity.CPU] if host_side or not cuda else []) + \
+        ([ProfilerActivity.CUDA] if cuda else [])
     return profile(activities=acts, acc_events=True)
 
 

@@ -17,7 +17,7 @@ from dczbench import judge
 from dczbench.reference import expected_file
 from datacomp_tpu_torch.services.gpu_service import GpuChunkCodec
 
-from .helpers import cpu_run
+from .helpers import FORMAT1, cpu_run
 
 
 def _flip_payload_bit(enc, data):
@@ -93,7 +93,7 @@ def _faults(result):
     return {k: v["value"] for k, v in result["checks"].items() if v["value"]}
 
 
-@pytest.mark.parametrize("workload", ["fast-v2.silesia", "device-v2.silesia"])
+@pytest.mark.parametrize("workload", ["fast-v2.silesia", "device-v2.silesia", FORMAT1])
 def test_sound_run_is_correct(tmp_tmpdir, workload):
     result = cpu_run(workload)
     assert result["correct"], _faults(result)
@@ -101,23 +101,24 @@ def test_sound_run_is_correct(tmp_tmpdir, workload):
     assert list(result)[-1] == "checks"
 
 
-@pytest.mark.parametrize("workload", ["fast-v2.silesia", "device-v2.silesia"])
+@pytest.mark.parametrize("workload", ["fast-v2.silesia", "device-v2.silesia", FORMAT1])
 def test_control_is_incorrect(tmp_tmpdir, workload):
     result = cpu_run(workload, control=True)
     assert not result["correct"]
     assert _faults(result)["codebook_faults"] > 0
 
 
+@pytest.mark.parametrize("workload", ["fast-v2.silesia", FORMAT1])
 @pytest.mark.parametrize("fault", [*ENCODE_FAULTS, "half_batch", "restored_byte",
                                    "verify_removed"])
-def test_run_with_fault_is_incorrect(tmp_tmpdir, monkeypatch, fault):
+def test_run_with_fault_is_incorrect(tmp_tmpdir, monkeypatch, fault, workload):
     if fault == "restored_byte":
         _break_decode(monkeypatch)
     elif fault == "verify_removed":
         _break_verify(monkeypatch)
     else:
         _break_encode(monkeypatch, fault)
-    result = cpu_run("fast-v2.silesia", files=2, scale=20)
+    result = cpu_run(workload, files=2, scale=20)
     assert not result["correct"], fault
     assert _faults(result)
     if fault == "verify_removed":  # the restored bytes are right: only this check sees it
