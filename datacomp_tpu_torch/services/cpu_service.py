@@ -94,7 +94,10 @@ class CpuChunkCodec(ChunkCodec):
                     gap_bits = starts[::sub].astype(np.uint32)
         return EncodedChunk(payload, lengths, sha, gap_bits)
 
-    def decode_chunk(self, payload, meta, header, metrics: StageMetrics) -> np.ndarray:
+    def decode_chunk(self, payload, meta, header, metrics: StageMetrics,
+                     decode_span: Optional[str] = None) -> np.ndarray:
+        """The chunk's bytes; ``decode_span`` names the span of its bit
+        decoding (by default the DECODING stage's, ``decode``)."""
         if (
             header.version >= ct.VERSION_V2
             and not meta.code_lengths.any()
@@ -106,7 +109,7 @@ class CpuChunkCodec(ChunkCodec):
         with metrics.timed(Stage.HUFFMAN_TREE_BUILD, span="decode_tables"):
             if not huffman.validate_lengths(meta.code_lengths):
                 raise huffman.CorruptChunkError(f"invalid code-length table in chunk {meta.index}")
-        with metrics.timed(Stage.DECODING, meta.original_size):
+        with metrics.timed(Stage.DECODING, meta.original_size, span=decode_span):
             if native.is_available():
                 try:  # the native decoder's ValueError is its non-zero rc: a corrupt stream
                     if (

@@ -15,7 +15,8 @@ Port of ``datacomp_tpu/services/tpu_service.py`` to PyTorch and CUDA:
   codec's, which caps v2 codes;
 * decode: raw-stored chunks pass through; v2 chunks with codes of at most
   16 bits run the gap-array decoder kernel K3; v1 chunks and deeper codebooks
-  go to the host codec through a counted route;
+  go to the host codec through a counted route (``host_decode_routes``), its
+  bit decoding a ``host_decode`` span of stage DECODING;
 * the chunk's SHA-256, in either mode: on a helper thread of the codec's
   own from :data:`INLINE_HASH_BYTES` up, while the worker goes on with the
   prepass and the device encode, joined when the chunk is built;
@@ -644,7 +645,8 @@ class GpuChunkCodec(ChunkCodec):
                 return np.frombuffer(payload, dtype=np.uint8)
         if not _decodes_on_device(meta, header):
             host_decode_routes.add()
-            return self._cpu.decode_chunk(payload, meta, header, metrics)
+            return self._cpu.decode_chunk(payload, meta, header, metrics,
+                                          decode_span="host_decode")
 
         with metrics.timed(Stage.HUFFMAN_TREE_BUILD, span="decode_tables"):
             host_tables = build_decode_tables(meta.code_lengths)
