@@ -19,7 +19,9 @@
    a byte, so the codec codes it, with most sub-blocks too dense for K3's
    per-warp buffers), timed for K3's direct route; and a ``text`` chunk with
    ``valid_len = n - 12345``, which leaves a short last sub-block, through
-   both kernels.
+   both kernels.  On each of these streams the gap finder K5 finds K2's gap
+   array and its total bits (the end), as its plain version does, and is
+   timed beside K3.
 4. K4 codebook on a few hundred histograms (the corpus's 8 chunks, random
    symbol subsets, heavy ties, 256 equal counts, one, two and no symbols,
    Fibonacci histograms of depth 20, 32 and 40, totals of 2^31 - 1 and
@@ -52,7 +54,9 @@
    counted host decode route; nothing else.
 8. The device-codebook path, v1: the ``.dcz`` equals the port's host codec's
    in the same config, K1, K4 and K2 ran once per chunk (and K1 per probe),
-   and the round trip restores the input through the host decode route.
+   and the round trip restores the input: each chunk of depth at most 16
+   through K5 and the batched K3 (one launch each, a group of one), the
+   deeper ones through the host decode route.
    Phases 6-8 pin ``batch_chunks`` to 1 (``DATACOMP_DEVICE_BATCH_CHUNKS``):
    one chunk a launch.
 9. The batched kernels: a group of four 16 MiB rows (``text``, ``skewed``,
@@ -270,11 +274,13 @@ def check_histogram(cfg) -> dict:
 
 def run_codec(kind: str, data: np.ndarray, valid: int) -> dict:
     """K2 then K3 on one chunk (``valid`` of its bytes), each held to its
-    plain version bit for bit and the decode to the input."""
+    plain version bit for bit and the decode to the input; and K5 on K2's
+    stream, its gaps held to K2's gap array and its plain version's, its end
+    to K2's total bits."""
     from datacomp_tpu_torch.core import huffman
     from datacomp_tpu_torch.ops import (
         build_decode_tables, codebook_to_torch, decode, decode_reference,
-        decode_tables_to_torch, encode, encode_reference, payload_to_words,
+        decode_tables_to_torch, encode, encode_reference, find_gaps, payload_to_words,
         words_to_bytes,
     )
 
@@ -310,11 +316,24 @@ def run_codec(kind: str, data: np.ndarray, valid: int) -> dict:
         fail(f"K3 {kind}: {subs} sub-blocks counted, {nsub} expected")
     g = np.append(gaps.cpu().numpy().astype(np.int64), 32 * words.numel())
     direct = int((((g[1:] >> 5) + 3 - (g[:-1] >> 5)) > K3_WARP_WORDS).sum())
+
+    rows = tuple(t.view(1, -1) for t in tables)
+    k5_gaps, k5_ends = find_gaps(words, [0, words.numel()], *rows, SUBBLOCK, [valid])
+    t0 = time.perf_counter()
+    p5_gaps, p5_ends = find_gaps(words.cpu(), [0, words.numel()], *(t.cpu() for t in rows),
+                                 SUBBLOCK, [valid])
+    gap_plain_ms = (time.perf_counter() - t0) * 1e3
+    if not (torch.equal(k5_gaps.cpu(), gaps.cpu()) and torch.equal(p5_gaps, gaps.cpu())
+            and int(k5_ends[0]) == int(p5_ends[0]) == tb):
+        fail(f"K5 {kind}: the gaps or the end differ from K2's or the plain version's")
     return {"x": x, "lt": lt, "ct": ct, "out_words": out_words, "live": live, "nsub": nsub,
-            "words": words, "gaps": gaps, "tables": tables, "depth": int(lengths.max()),
-            "bits_per_byte": tb / valid, "sync_rounds": rounds / nsub, "direct": direct,
+            "words": words, "gaps": gaps, "tables": tables, "rows": rows,
+            "depth": int(lengths.max()), "bits_per_byte": tb / valid,
+            "sync_rounds": rounds / nsub, "direct": direct,
             "enc_err": max(max_abs_err(kw, rw), max_abs_err(kg, rg)),
-            "dec_err": max_abs_err(kd, rd)}
+            "dec_err": max_abs_err(kd, rd),
+            "gap_err": max(max_abs_err(k5_gaps, p5_gaps), max_abs_err(k5_ends, p5_ends)),
+            "gap_plain_ms": gap_plain_ms}
 
 
 def dense_chunk() -> np.ndarray:
@@ -328,9 +347,11 @@ def dense_chunk() -> np.ndarray:
 
 
 def check_codec(kind: str) -> dict:
-    from datacomp_tpu_torch.benchmark.kernels import bound, decode_work, encode_work
+    from datacomp_tpu_torch.benchmark.kernels import (
+        bound, decode_work, encode_work, gap_finder_work,
+    )
     from datacomp_tpu_torch.ops import (
-        _build, decode, decode_reference, encode, encode_reference,
+        _build, decode, decode_reference, encode, encode_reference, find_gaps,
     )
     from datacomp_tpu_torch.tools import copies, cuda_ms, graph_ms
     from datacomp_tpu_torch.utils.testdata import generate_bytes
@@ -343,6 +364,7 @@ def check_codec(kind: str) -> dict:
              f"sub-blocks on the direct route")
     lt, ct, out_words, tables, nsub = c["lt"], c["ct"], c["out_words"], c["tables"], c["nsub"]
     xs, ws = copies(c["x"]), copies(c["words"], c["gaps"])
+    rows, nw = c["rows"], c["words"].numel()
     table_bytes = sum(t.numel() * t.element_size() for t in tables)
     # the wrapper's one zero-fill (tile ticket, total, tile statuses, words)
     tiles = -(-CHUNK // _build.library().dcz_encode_tile_symbols())
@@ -373,6 +395,16 @@ def check_codec(kind: str) -> dict:
             **bound(*decode_work(c["words"].numel(), nsub, table_bytes, CHUNK)),
             "library_ms": None,
         },
+        "gap_finder": {
+            "max_abs_err": c["gap_err"],
+            "ms": cuda_ms(lambda w, _: find_gaps(w, [0, nw], *rows, SUBBLOCK, [CHUNK]), ws, 24),
+            "device_ms": graph_ms(
+                lambda w, _: find_gaps(w, [0, nw], *rows, SUBBLOCK, [CHUNK]), ws, 48),
+            "plain_ms": c["gap_plain_ms"],  # one call on CPU tensors, host clock
+            # the stream and tables in; the gap array and the end out
+            **bound(*gap_finder_work(nw, nsub, table_bytes, 1, CHUNK)),
+            "library_ms": None,
+        },
         "sync_rounds": c["sync_rounds"],
         "direct_subblocks": c["direct"],
     }
@@ -384,8 +416,10 @@ def check_codec(kind: str) -> dict:
           f"(device time alone {res['decode']['device_ms']} ms), plain "
           f"{res['decode']['plain_ms']} ms, bound {res['decode']['bound_ms']} ms, "
           f"{res['sync_rounds']} sync rounds a sub-block, {c['direct']} of {nsub} "
-          f"sub-blocks on the direct route; bit-exact, round trip ok",
-          flush=True)
+          f"sub-blocks on the direct route; gap finder kernel {res['gap_finder']['ms']} ms "
+          f"(device time alone {res['gap_finder']['device_ms']} ms), plain "
+          f"{res['gap_finder']['plain_ms']} ms, bound {res['gap_finder']['bound_ms']} ms; "
+          f"bit-exact, round trip ok", flush=True)
     return res
 
 
@@ -668,6 +702,7 @@ def run_device_v2(d: str, src: str) -> dict:
 
 def run_device_v1(d: str, src: str) -> dict:
     from datacomp_tpu_torch.core import read_container
+    from datacomp_tpu_torch.ops import TABLE_BITS, max_code_len
 
     dcz, out, ref = (os.path.join(d, f) for f in ("dev1.dcz", "dev1.out", "dev1-host.dcz"))
     res = run_cli("device codebook, v1", ["--format", "1", "--codebook-mode", "device"],
@@ -676,15 +711,16 @@ def run_device_v1(d: str, src: str) -> dict:
                       os.path.join(d, "dev1-host.out"))
     if not filecmp.cmp(dcz, ref, shallow=False):
         fail("device v1: the port's .dcz differs from the host codec's")
-    chunks = len(read_container(dcz)[0].chunks)
+    depths = [max_code_len(c.code_lengths) for c in read_container(dcz)[0].chunks]
+    chunks, shallow = len(depths), sum(1 for dep in depths if 0 < dep <= TABLE_BITS)
     want = {"histogram": chunks + res["probes"], "codebook": chunks, "encode": chunks,
-            "decode": 0}
+            "decode": 0, "find_gaps": shallow, "decode_batch": shallow}
     got = {name: res["launches"][name] for name in want}
-    print(f"device v1: {chunks} chunks; .dcz byte-identical to the host codec's (which "
-          f"ran at {host[0]} / {host[1]} MB/s); launches {got}, expected {want}; host "
-          f"decode routes {res['decode_routes']}", flush=True)
-    if got != want or res["decode_routes"] != chunks:
-        fail("device v1: launch counts or routes are not one per chunk")
+    print(f"device v1: {chunks} chunks of depths {depths}; .dcz byte-identical to the host "
+          f"codec's (which ran at {host[0]} / {host[1]} MB/s); launches {got}, expected "
+          f"{want}; host decode routes {res['decode_routes']}", flush=True)
+    if got != want or res["decode_routes"] != chunks - shallow:
+        fail("device v1: launch counts or routes are not those the depths imply")
     return res
 
 
@@ -856,25 +892,29 @@ def expected_launches(dcz: str, device_codebook: bool, batch: int, ranks: int = 
     (of each rank's round-robin stripe, with ``ranks`` ranks) runs the
     batched kernels once when two or more of its members reach the device,
     the unbatched kernels once when one does.  Compress: the chunks not
-    stored raw; decompress: v2 chunks of depth 1 to 16 (the rest that are
-    not raw take the host route).  K1 also runs once a service probe."""
+    stored raw; decompress: chunks of depth 1 to 16 (the rest that are not
+    raw take the host route), where a v1 group with any runs K5 and the
+    batched K3 once, however many.  K1 also runs once a service probe."""
     from datacomp_tpu_torch.core import read_container
     from datacomp_tpu_torch.ops import TABLE_BITS, max_code_len
 
     header, _ = read_container(dcz)
     v2 = header.version >= 2
     want = {name: 0 for name in ("histogram", "codebook", "encode", "decode", "histogram_batch",
-                                 "codebook_batch", "encode_batch", "decode_batch")}
+                                 "codebook_batch", "encode_batch", "decode_batch", "find_gaps")}
     routes = 0
     groups = [stripe[i : i + batch] for stripe in (header.chunks[r::ranks] for r in range(ranks))
               for i in range(0, len(stripe), batch)]
     for group in groups:
         depths = [max_code_len(c.code_lengths) for c in group]
         coded = sum(1 for dep in depths if dep > 0)
-        on_k3 = sum(1 for dep in depths if v2 and 0 < dep <= TABLE_BITS)
+        on_k3 = sum(1 for dep in depths if 0 < dep <= TABLE_BITS)
         routes += coded - on_k3
+        if not v2 and on_k3:
+            want["find_gaps"] += 1
+            want["decode_batch"] += 1
         for names, members in (((("histogram", "codebook") if device_codebook else ())
-                                + ("encode",), coded), (("decode",), on_k3)):
+                                + ("encode",), coded), (("decode",), on_k3 if v2 else 0)):
             for name in names:
                 if members > 1:
                     want[f"{name}_batch"] += 1
@@ -1600,8 +1640,8 @@ def main() -> int:
                                                               "fast"], d, src, "fast", fast)
         dev2_4 = run_batched("device codebook, v2", ["--format", "2", "--codebook-mode",
                                                      "device"], d, src, "dev2", dev2)
-        run_batched("device codebook, v1", ["--format", "1", "--codebook-mode",
-                                                     "device"], d, src, "dev1", dev1)
+        dev1_4 = run_batched("device codebook, v1", ["--format", "1", "--codebook-mode",
+                                                       "device"], d, src, "dev1", dev1)
         sharded = {"step": check_sharded_step(d, np.fromfile(src, np.uint8)),
                    **run_sharded_cli(d, src)}
         print("sharded: " + json.dumps(sharded), flush=True)
@@ -1645,6 +1685,10 @@ def main() -> int:
         {"name": "codebook", "route": "cuda", "source": source.format("codebook"),
          "replaces": "datacomp_tpu/ops/codebook.py:37",
          "launches": dev2["launches"]["codebook"], **cbook},
+        # the JAX package decodes format 1 on the host: K5 replaces no kernel
+        {"name": "find_gaps", "route": "cuda", "source": source.format("gap_finder"),
+         "replaces": None, "launches": dev1["launches"]["find_gaps"],
+         "batched_launches": dev1_4["launches"]["find_gaps"], **codec["text"]["gap_finder"]},
         {**variant("histogram_stacked", "stacked"), "replaces": "tools/ab_hist_pallas_r3.py:42"},
         {**variant("histogram_partial", "partial-k4"), "replaces": "tools/ab_hist_pallas_r4.py:50"},
     ]

@@ -96,6 +96,13 @@ def decode_work(stream_words: int, gap_words: int, table_bytes: int, n_out: int)
     return 4 * stream_words + 4 * gap_words + table_bytes + n_out, n_out
 
 
+def gap_finder_work(stream_words: int, gap_words: int, table_bytes: int, rows: int,
+                    n_out: int) -> tuple:
+    """K5: the streams and tables in; the gap arrays and an int64 end a row
+    out; an operation a symbol."""
+    return 4 * stream_words + table_bytes + 4 * gap_words + 8 * rows, n_out
+
+
 def card_line() -> str:
     """The card's name and power limit, as ``nvidia-smi --query-gpu=name,
     power.limit --format=csv,noheader`` gives them."""

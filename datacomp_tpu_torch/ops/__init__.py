@@ -1,11 +1,13 @@
 """Device ops of the port: each a hand-written CUDA kernel with its plain
 PyTorch version beside it (K1 histogram, K2 encode, K3 decode, K4 codebook,
-and K1's A/B variants K1s and K1p).  K1-K4 also take a batch of chunks in one
-launch (``*_batch``), each batched entry point with its own counts."""
+K5 gap finder, and K1's A/B variants K1s and K1p).  K1-K4 also take a batch
+of chunks in one launch (``*_batch``), each batched entry point with its own
+counts; K5 takes a batch always."""
 
 from . import codebook as _codebook_mod
 from . import decode as _decode_mod
 from . import encode as _encode_mod
+from . import gap_finder as _gap_finder_mod
 from . import histogram as _histogram_mod
 from ._build import MAX_ROWS
 from .codebook import codebook, codebook_batch, codebook_batch_reference, codebook_reference
@@ -36,6 +38,8 @@ from .encode import (
     encode_reference,
     words_to_bytes,
 )
+from .gap_finder import find_gaps, find_gaps_reference, gap_offsets
+from .gap_finder import fits as gap_finder_fits
 from .histogram import (
     histogram,
     histogram_batch,
@@ -67,6 +71,7 @@ COUNTERS = {
     "codebook_batch": (_codebook_mod.batch_launches, _codebook_mod.batch_reference_calls),
     "encode_batch": (_encode_mod.batch_launches, _encode_mod.batch_reference_calls),
     "decode_batch": (_decode_mod.batch_launches, _decode_mod.batch_reference_calls),
+    "find_gaps": (_gap_finder_mod.kernel_launches, _gap_finder_mod.reference_calls),
 }
 
 
@@ -96,6 +101,10 @@ __all__ = [
     "encode_batch_reference",
     "encode_reference",
     "words_to_bytes",
+    "find_gaps",
+    "find_gaps_reference",
+    "gap_finder_fits",
+    "gap_offsets",
     "histogram",
     "histogram_batch",
     "histogram_batch_reference",

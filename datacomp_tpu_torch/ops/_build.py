@@ -34,7 +34,8 @@ import torch
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
-SOURCES = ("histogram.cu", "encode.cu", "decode.cu", "codebook.cu", "histogram_variants.cu")
+SOURCES = ("histogram.cu", "encode.cu", "decode.cu", "codebook.cu", "histogram_variants.cu",
+           "gap_finder.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC",
@@ -58,6 +59,8 @@ _SIGNATURES = {
     "dcz_histogram_stacked_rows": (_I32, _P),
     "dcz_histogram_stacked": (_P, _I64, _I32, _I32, _P, _P, _I32, _P),
     "dcz_histogram_partial": (_P, _I64, _I32, _P, _P, _I32, _P),
+    "dcz_gap_tile_bits": (),
+    "dcz_find_gaps": (_P, _P, _P, _P, _P, _I32, _I32, _P, _P, _P, _P, _P, _P),
 }
 
 _lock = threading.Lock()

@@ -260,7 +260,7 @@ def _decode_group_local(step, codec, header, payloads, metas, metrics, mesh: Mes
     """Decode up to one chunk a local device through the sharded decompress
     step (``_decode_group_mesh``, ``multihost.py:402-483``).  Routing is the
     single-device codec's: raw-stored chunks pass through, and the chunks it
-    sends to the host (v1, codes deeper than 16 bits) take its counted host
+    sends to the host (codes deeper than 16 bits) take its counted host
     route (``GpuChunkCodec.decode_chunk``); the rest take one device each,
     in order, their stream, gap array and tables in one copy up and their
     bytes in one copy back.  A device without a chunk launches nothing."""
@@ -417,8 +417,9 @@ def decompress_multihost(
     (``multihost.py:486``): rank 0 creates and sizes the output, then every
     rank decodes its round-robin stripe through its codec's
     ``decode_chunk_batch`` in groups of ``batch_chunks`` (the GPU codec:
-    raw-stored chunks pass through, v1 chunks and codes deeper than 16 bits
-    take the counted host route, the rest one batched K3 launch a group),
+    raw-stored chunks pass through, codes deeper than 16 bits take the
+    counted host route, the rest one batched K3 launch a group, after one
+    launch of the gap finder K5 in v1),
     checks each chunk's SHA-256 and ``pwrite``s it at its original offset.
     With several local devices and the GPU backend, a v2 file with
     sub-blocks (``multihost.py:532-539``) goes instead in groups of one

@@ -13,10 +13,12 @@ Port of ``datacomp_tpu/services/tpu_service.py`` to PyTorch and CUDA:
   words; v1 has no host histogram.  The device's codes are optimal and
   uncapped (``max_code_len`` is ignored), so v2 files differ from the host
   codec's, which caps v2 codes;
-* decode: raw-stored chunks pass through; v2 chunks with codes of at most
-  16 bits run the gap-array decoder kernel K3; v1 chunks and deeper codebooks
-  go to the host codec through a counted route (``host_decode_routes``), its
-  bit decoding a ``host_decode`` span of stage DECODING;
+* decode: raw-stored chunks pass through; chunks with codes of at most 16
+  bits run the gap-array decoder kernel K3, a v2 chunk from its stored gap
+  array and a v1 chunk from the one the gap finder K5 finds on the device
+  first; deeper codebooks go to the host codec through a counted route
+  (``host_decode_routes``), its bit decoding a ``host_decode`` span of stage
+  DECODING;
 * the chunk's SHA-256, in either mode: on a helper thread of the codec's
   own from :data:`INLINE_HASH_BYTES` up, while the worker goes on with the
   prepass and the device encode, joined when the chunk is built;
@@ -46,6 +48,7 @@ import torch
 
 from ..config import AppConfig, load_config
 from ..core import container as ct, huffman
+from ..core.huffman import CorruptChunkError
 from ..models import (
     CompressionMetrics,
     MetricsService,
@@ -65,6 +68,9 @@ from ..ops import (
     decode_tables_to_torch,
     encode,
     encode_batch,
+    find_gaps,
+    gap_finder_fits,
+    gap_offsets,
     histogram,
     histogram_batch,
     max_code_len,
@@ -80,7 +86,7 @@ from .pipeline import ChunkCodec, ChunkedPipeline, EncodedChunk
 
 #: chunks that bypassed the device because of their codebook
 host_encode_routes = LaunchCounter()  # codes deeper than the encoder's 32 bits
-host_decode_routes = LaunchCounter()  # v1 container or codes deeper than 16 bits
+host_decode_routes = LaunchCounter()  # codes deeper than 16 bits, or no gap array
 
 #: chunks of fewer bytes are hashed on their worker.  On the H100 host
 #: (gVisor, 8 vCPUs) handing a hash to a helper thread and joining it costs
@@ -91,6 +97,11 @@ host_decode_routes = LaunchCounter()  # v1 container or codes deeper than 16 bit
 #: join, so from here up the hand-off takes time off the critical path.
 #: ``tools/hash_handoff.py`` measures both.
 INLINE_HASH_BYTES = 64 << 10
+
+#: symbols a sub-block when a format-1 chunk decodes on the device: K5 finds
+#: the start of each, and K3 decodes them; format 2's default, for which K3's
+#: staged route is sized (``csrc/decode.cu``)
+FORMAT1_SUBBLOCK = 4032
 
 
 def pick_device(platform: str = "any", index: int = -1) -> torch.device:
@@ -250,10 +261,22 @@ def _decodes_on_device(meta, header) -> bool:
     )
 
 
+def _finds_gaps_on_device(meta, header) -> bool:
+    """A coded v1 chunk with codes of 1 to 16 bits, whose bits fit K5's
+    uint32 gaps: K5 finds its gap array on the device, and K3 decodes it from
+    there."""
+    return (
+        header.version < ct.VERSION_V2
+        and 0 < max_code_len(meta.code_lengths) <= TABLE_BITS
+        and gap_finder_fits(-(-meta.compressed_size // 4) + 2, meta.original_size)
+    )
+
+
 class GpuChunkCodec(ChunkCodec):
     """Per-chunk device codec: host codebook → device encode (K2), or in
     device-codebook mode histogram (K1) → codebook (K4) → encode (K2) on the
-    device; gap-array device decode (K3) for v2 containers.  A group of
+    device; gap-array device decode (K3), from the stored gap array in v2
+    containers and from the gap finder's (K5) in v1.  A group of
     chunks (:meth:`encode_chunk_batch`, :meth:`decode_chunk_batch`) launches
     each kernel's batched entry point once for all of its device members."""
 
@@ -643,6 +666,8 @@ class GpuChunkCodec(ChunkCodec):
         if _is_raw_stored(meta, header):
             with metrics.timed(Stage.DECODING, meta.original_size):
                 return np.frombuffer(payload, dtype=np.uint8)
+        if _finds_gaps_on_device(meta, header):
+            return self._decode_group([payload], [meta], header, metrics)[0]
         if not _decodes_on_device(meta, header):
             host_decode_routes.add()
             return self._cpu.decode_chunk(payload, meta, header, metrics,
@@ -663,15 +688,18 @@ class GpuChunkCodec(ChunkCodec):
 
     def decode_chunk_batch(self, payloads, metas, header, metrics: StageMetrics) -> list:
         """Decode a group of chunks (``TpuChunkCodec.decode_chunk_batch``):
-        raw-stored members pass through, v1 members and codes deeper than 16
-        bits take the counted host route, and all other members go to one
-        launch of K3, whatever their depth; a lone such member takes the
-        per-chunk path.  The JAX service groups by its decoder's static
-        parameters; K3 reads each member's tables at run time."""
+        raw-stored members pass through, codes deeper than 16 bits take the
+        counted host route, and all other members go to one launch of K3
+        (after one of K5 in v1), whatever their depth; a lone such member
+        takes the per-chunk path.  The JAX service groups by its decoder's
+        static parameters and decodes v1 on the host; K3 and K5 read each
+        member's tables at run time."""
         if self.batch_chunks <= 1 or len(payloads) == 1:
             return [self.decode_chunk(p, m, header, metrics) for p, m in zip(payloads, metas)]
+        on_device = (_decodes_on_device if header.version >= ct.VERSION_V2
+                     else _finds_gaps_on_device)
         group = [j for j, m in enumerate(metas)
-                 if not _is_raw_stored(m, header) and _decodes_on_device(m, header)]
+                 if not _is_raw_stored(m, header) and on_device(m, header)]
         if len(group) == 1:
             group = []
         results = [None if j in group else self.decode_chunk(p, m, header, metrics)
@@ -685,28 +713,48 @@ class GpuChunkCodec(ChunkCodec):
 
     def _decode_group(self, payloads, metas, header, metrics: StageMetrics) -> list:
         """Batched K3: the members' streams, gap arrays and tables go up in
-        one copy, and their outputs come back in one."""
+        one copy, and their outputs come back in one.  A v1 group has no gap
+        arrays to upload: K5 finds them on the device, and each member's end
+        bit comes back with the outputs, held to its payload's length."""
         with metrics.timed(Stage.HUFFMAN_TREE_BUILD, span="decode_tables"):
             tables = [build_decode_tables(m.code_lengths) for m in metas]
         n_outs = [m.original_size for m in metas]
-        with metrics.timed(Stage.DECODING, sum(n_outs)):
+        total = sum(n_outs)
+        with metrics.timed(Stage.DECODING, total):
             with span("upload"):
-                args = self._decode_inputs(payloads, metas, tables, self.device)
+                words, word_offsets, gaps, offsets, *tables_t = self._decode_inputs(
+                    payloads, metas, tables, self.device)
             with span("launch"):
-                out = decode_batch(*args, header.subblock_symbols, n_outs)
+                subblock, ends = header.subblock_symbols, None
+                if header.version < ct.VERSION_V2:
+                    subblock = FORMAT1_SUBBLOCK
+                    gaps, ends = find_gaps(words, word_offsets, *tables_t, subblock, n_outs)
+                    offsets = gap_offsets(n_outs, subblock)
+                out = decode_batch(words, word_offsets, gaps, offsets, *tables_t, subblock,
+                                   n_outs)
             with span("fetch"):
+                if ends is not None:
+                    out = torch.cat([out, ends.view(torch.uint8)])
                 out = out.cpu().numpy()
             with span("unpack"):
-                return _split(out, n_outs)
+                if ends is not None:
+                    for m, p, end in zip(metas, payloads, out[total:].view(np.int64)):
+                        if end > 8 * len(p):
+                            raise CorruptChunkError(
+                                f"chunk {m.index}: its {m.original_size} symbols end at bit "
+                                f"{end}, past its {len(p)}-byte payload")
+                return _split(out[:total], n_outs)
 
     @staticmethod
     def _decode_inputs(payloads, metas, tables, device) -> tuple:
         """The rows' streams, gap arrays and decode tables on ``device``, in
         one copy: ``(words, word_offsets, gaps, gap_offsets, limits, adj,
-        sym)`` as :func:`ops.decode_batch` takes them."""
+        sym)`` as :func:`ops.decode_batch` takes them; a chunk without a gap
+        array (v1) has an empty one."""
         rows = len(metas)
         words = [payload_to_words(p).view(np.int32) for p in payloads]
-        gaps = [m.gap_bits.astype(np.uint32).view(np.int32) for m in metas]
+        gaps = [np.zeros(0, np.int32) if m.gap_bits is None
+                else m.gap_bits.astype(np.uint32).view(np.int32) for m in metas]
         word_offsets = np.cumsum([0] + [w.size for w in words]).tolist()
         gap_offsets = np.cumsum([0] + [g.size for g in gaps]).tolist()
         limits, adj, sym = (np.stack([t[k] for t in tables]).astype(np.int32) for k in range(3))

@@ -18,7 +18,7 @@ import pytest
 
 from datacomp_tpu_torch.config import load_config
 from datacomp_tpu_torch.core import read_container
-from datacomp_tpu_torch.ops import COUNTERS, reset_counters
+from datacomp_tpu_torch.ops import COUNTERS, TABLE_BITS, max_code_len, reset_counters
 from datacomp_tpu_torch.services import CpuCompressionService, GpuCompressionService
 from datacomp_tpu_torch.services.gpu_service import host_decode_routes
 from datacomp_tpu_torch.utils.testdata import generate_bytes
@@ -83,11 +83,20 @@ def test_decodes_and_deep_verifies(tmp_path, service, archive):
     before = _fixture(archive)
     out = tmp_path / "restored.bin"
     host_decode_routes.reset()
+    reset_counters()
     with SERVICES[service](load_config(compression={"chunk_size_mb": 1})) as svc:
         assert svc.verify_integrity(path, deep=True)
         svc.decompress(path, str(out))
     assert out.read_bytes() == want
-    # v1 archives: the GPU service decodes every chunk through its host route, twice
-    chunks = len(read_container(path)[0].chunks)
-    assert host_decode_routes.value == (2 * chunks if service == "gpu-plain" else 0)
+    # v1 archives, decoded twice by the GPU service: a chunk whose codes are
+    # at most 16 bits deep through the gap finder and K3, a deeper one
+    # through the host route
+    header, _ = read_container(path)
+    assert header.version == 1
+    depths = [max_code_len(c.code_lengths) for c in header.chunks]
+    shallow = sum(1 for dep in depths if 0 < dep <= TABLE_BITS)
+    gpu = service == "gpu-plain"
+    assert host_decode_routes.value == (2 * (len(depths) - shallow) if gpu else 0)
+    assert COUNTERS["find_gaps"][1].value == (2 * shallow if gpu else 0)
+    assert COUNTERS["decode_batch"][1].value == (2 * shallow if gpu else 0)
     assert _fixture(archive) == before  # read, never written

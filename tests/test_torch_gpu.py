@@ -15,7 +15,11 @@ fixed-length code (no sync round), on the periodic ``compressible`` text, at
 sub-blocks of 32 and 65 536 symbols (the second beyond the per-warp
 buffers), with a 1-symbol last sub-block, and on random streams (no fault,
 ``n_out`` bytes back); K2's single pass with tiles that start and end
-mid-word and ``out_words`` cut inside a tile.  The sharded compress step of
+mid-word and ``out_words`` cut inside a tile.  K5, the gap finder, on 16 MiB
+rows of every ``dczbench.corpus`` generator against K2's gap arrays and its
+plain version, one row a launch and batched at 4 and 16 rows, on a stream
+that resynchronises late and on random words, and K5 → K3 against the host
+decoder.  The sharded compress step of
 ``datacomp_tpu_torch.parallel`` at world size 1, its all-gather on NCCL,
 against the batched kernels and the plain versions (1, 4, 16 and 17 rows),
 and ``pick_device`` with ``LOCAL_RANK`` past the device count.  The local
@@ -246,6 +250,140 @@ def test_decode_kernel_survives_random_streams(cuda, gaps_kind):
     out = ops.decode(words, gaps, *dt, subblock, n_out)
     torch.cuda.synchronize()
     assert out.shape == (n_out,) and out.dtype == torch.uint8
+
+
+_K5_S = 4032  # the format-1 sub-block of the GPU service
+_K5_ROW = 16 << 20
+
+
+def _k5_tables(lengths, cuda):
+    return tuple(t.view(1, -1) for t in ops.decode_tables_to_torch(
+        *ops.build_decode_tables(lengths), cuda))
+
+
+def _late_codebook():
+    """254 codes of 8 bits and one of 7: a parse that starts off the true
+    phase keeps decoding 8-bit codewords and stays off it for about a
+    thousand codewords, twice K5's 512-bit margin and more."""
+    lengths = np.full(256, 8, np.int32)
+    lengths[0], lengths[255] = 7, 0
+    return lengths, canonical_codes_from_lengths(lengths)
+
+
+@pytest.fixture(scope="module")
+def k5_rows():
+    """Per kind: a 16 MiB row through K2 on the card (fast codes capped at
+    16 bits; for ``late``, :func:`_late_codebook`), its stream and tables on
+    the card, K2's gap array and total bits, and the plain K5's gaps and
+    end."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from dczbench import corpus
+
+    cuda = torch.device("cuda")
+    rows = {}
+    for kind in [*sorted(corpus.GENERATORS), "late"]:
+        if kind == "late":
+            data = np.random.default_rng(5).integers(0, 255, _K5_ROW - 4321).astype(np.uint8)
+            lengths, codes = _late_codebook()
+        else:
+            # a 4 MiB sample four times over: the generators are Python loops
+            sample = np.frombuffer(corpus.GENERATORS[kind](_K5_ROW // 4, 2**31 + 24), np.uint8)
+            data = np.tile(sample, 4)[: _K5_ROW - 4321]
+            lengths, codes = build_codebook(np.bincount(data, minlength=256), mode="fast",
+                                            max_len=16)
+        padded = np.zeros(_K5_ROW, np.uint8)
+        padded[: data.size] = data
+        kw, ktb, kg = ops.encode(torch.from_numpy(padded).to(cuda), data.size,
+                                 *ops.codebook_to_torch(lengths, codes, cuda),
+                                 (16 * _K5_ROW + 31) // 32 + 2, _K5_S)
+        tb = int(ktb)
+        payload = ops.words_to_bytes(kw[: (tb + 31) // 32].cpu().numpy(), tb)
+        words = torch.from_numpy(ops.payload_to_words(payload).view(np.int32)).view(torch.uint32)
+        tables = _k5_tables(lengths, cuda)
+        plain = ops.find_gaps(words, [0, words.numel()], *(t.cpu() for t in tables), _K5_S,
+                              [data.size])
+        rows[kind] = {"words": words.to(cuda), "tables": tables, "n": data.size,
+                      "k2_gaps": kg[: -(-data.size // _K5_S)].cpu(), "bits": tb,
+                      "plain": plain, "payload": payload, "lengths": lengths, "data": data}
+    return rows
+
+
+def test_gap_finder_plain_is_k2s_gap_array(k5_rows):
+    for kind, r in k5_rows.items():
+        gaps, ends = r["plain"]
+        assert _same(gaps, r["k2_gaps"]), kind
+        assert int(ends[0]) == r["bits"], kind
+
+
+@pytest.mark.parametrize("rows", [1, 4, 16])
+def test_gap_finder_kernel_matches_plain(k5_rows, rows):
+    """``rows`` rows of the kinds in turn in one launch, each the plain
+    version's gaps and end."""
+    kinds = sorted(k5_rows)
+    pick = [k5_rows[kinds[b % len(kinds)]] for b in range(rows)]
+    words = torch.cat([r["words"] for r in pick])
+    offsets = np.cumsum([0] + [r["words"].numel() for r in pick]).tolist()
+    tables = tuple(torch.cat([r["tables"][k] for r in pick]) for k in range(3))
+    launches = ops.COUNTERS["find_gaps"][0].value
+    gaps, ends = ops.find_gaps(words, offsets, *tables, _K5_S, [r["n"] for r in pick])
+    assert ops.COUNTERS["find_gaps"][0].value == launches + 1
+    assert _same(gaps, torch.cat([r["plain"][0] for r in pick]))
+    assert ends.cpu().tolist() == [int(r["plain"][1][0]) for r in pick]
+
+
+def test_gap_finder_kernel_then_k3_is_the_host_decoder(k5_rows, cuda):
+    from datacomp_tpu_torch import native
+
+    for kind in ("english", "late", "radiograph"):
+        r = k5_rows[kind]
+        words, n = r["words"], r["n"]
+        gaps, _ = ops.find_gaps(words, [0, words.numel()], *r["tables"], _K5_S, [n])
+        out = ops.decode_batch(words, [0, words.numel()], gaps, ops.gap_offsets([n], _K5_S),
+                               *r["tables"], _K5_S, [n])
+        host = native.decode(r["payload"], n, r["lengths"])
+        assert np.array_equal(out.cpu().numpy(), host), kind
+        assert np.array_equal(host, r["data"]), kind
+
+
+@pytest.mark.parametrize("n_out", [1_000_003, 9_000_000])
+def test_gap_finder_kernel_on_random_words(cuda, n_out):
+    """Garbage: the kernel follows the same parse as the plain version, past
+    the stream's end too, and finishes."""
+    rng = np.random.default_rng(n_out)
+    words = torch.from_numpy(rng.integers(0, 1 << 32, 300_000, dtype=np.uint64)
+                             .astype(np.uint32).view(np.int32)).view(torch.uint32)
+    lengths, _ = _late_codebook()
+    for lengths in (lengths, _codebook("skewed")[1]):
+        tables = _k5_tables(lengths, cuda)
+        gaps, ends = ops.find_gaps(words.to(cuda), [0, words.numel()], *tables, _K5_S, [n_out])
+        want, want_end = ops.find_gaps(words, [0, words.numel()], *(t.cpu() for t in tables),
+                                       _K5_S, [n_out])
+        assert _same(gaps, want) and int(ends[0]) == int(want_end[0])
+
+
+def test_gap_finder_kernel_on_short_and_empty_rows(cuda):
+    """Rows of 0, 1, 17 and 5,000 bytes: one launch, each row its own."""
+    datas = [np.frombuffer(generate_bytes("text", n, seed=n), np.uint8)[:n]
+             for n in (0, 1, 17, 5000)]
+    lengths, codes = build_codebook(np.bincount(np.concatenate(datas), minlength=256),
+                                    mode="fast", max_len=16)
+    parts = []
+    for d in datas:
+        padded = np.zeros(-(-max(d.size, 1) // 32) * 32, np.uint8)
+        padded[: d.size] = d
+        kw, ktb, kg = ops.encode(torch.from_numpy(padded).to(cuda), d.size,
+                                 *ops.codebook_to_torch(lengths, codes, cuda),
+                                 (16 * padded.size + 31) // 32 + 2, 32)
+        payload = ops.words_to_bytes(kw[: (int(ktb) + 31) // 32].cpu().numpy(), int(ktb))
+        parts.append((torch.from_numpy(ops.payload_to_words(payload).view(np.int32))
+                      .view(torch.uint32), kg[: -(-d.size // 32)].cpu(), int(ktb)))
+    words = torch.cat([p[0] for p in parts]).to(cuda)
+    offsets = np.cumsum([0] + [p[0].numel() for p in parts]).tolist()
+    tables = tuple(t.expand(len(datas), -1).contiguous() for t in _k5_tables(lengths, cuda))
+    gaps, ends = ops.find_gaps(words, offsets, *tables, 32, [d.size for d in datas])
+    assert _same(gaps, torch.cat([p[1] for p in parts]))
+    assert ends.cpu().tolist() == [p[2] for p in parts]
 
 
 def test_encode_kernel_tiles_start_and_end_mid_word(cuda):
@@ -598,7 +736,11 @@ def test_batched_service_matches_unbatched(cuda, tmp_path, version, mode):
     assert launches["encode_batch"] == 2 and launches["encode"] == 0
     device = mode == "device"
     assert launches["histogram_batch"] == launches["codebook_batch"] == 2 * device
-    assert launches["decode_batch"] == 2 * (version == 2)
+    # every chunk is at most 16 bits deep: v1 groups find their gaps on the card too
+    header, _ = read_container(str(tmp_path / "4.dcz"))
+    assert max(ops.max_code_len(c.code_lengths) for c in header.chunks) <= ops.TABLE_BITS
+    assert launches["decode_batch"] == 2 and launches["decode"] == 0
+    assert launches["find_gaps"] == 2 * (version == 1)
 
 
 @pytest.fixture(scope="module")
@@ -858,8 +1000,9 @@ def test_golden_fixtures_on_the_card(cuda, tmp_path, name):
     """``tests/test_torch_golden.py`` on the card: the input in java v1
     through K2 to its pinned size and SHA-256 (and checked-in archive); in
     fast v2 through K2 and K3 back to itself, the ``.dcz`` equal to the host
-    codec's; the checked-in archive (v1: host decode route) decoded and
-    deep-verified.  One chunk a launch, no plain version."""
+    codec's; the checked-in archive (v1: the gap finder and K3, or the host
+    decode route past 16 bits) decoded and deep-verified.  One chunk a
+    launch, no plain version."""
     from datacomp_tpu_torch.services import gpu_service
 
     spec = _GOLDEN[name]
@@ -897,12 +1040,17 @@ def test_golden_fixtures_on_the_card(cuda, tmp_path, name):
             assert ops.COUNTERS["decode"][0].value == sum(0 < d <= ops.TABLE_BITS for d in coded)
     if os.path.exists(archive):
         gpu_service.host_decode_routes.reset()
+        ops.reset_counters()
         cfg = datacomp_tpu_torch.config.load_config(device={"batch_chunks": 1})
         with GpuCompressionService(cfg, device="cuda") as svc:
             assert svc.verify_integrity(archive, deep=True)
             svc.decompress(archive, str(tmp_path / "archive.out"))
         assert (tmp_path / "archive.out").read_bytes() == data
-        assert gpu_service.host_decode_routes.value == 2 * len(read_container(archive)[0].chunks)
+        depths = [ops.max_code_len(c.code_lengths) for c in read_container(archive)[0].chunks]
+        shallow = sum(1 for d in depths if 0 < d <= ops.TABLE_BITS)
+        assert gpu_service.host_decode_routes.value == 2 * (len(depths) - shallow)
+        assert ops.COUNTERS["find_gaps"][0].value == 2 * shallow
+        assert not any(c[1].value for c in ops.COUNTERS.values())
 
 
 def test_bench_gpu_leg_on_the_card(cuda, tmp_path, monkeypatch):

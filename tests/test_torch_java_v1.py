@@ -2,9 +2,11 @@
 ``GpuCompressionService(device="cpu")`` (the kernels' plain versions) with
 the compression block of ``dczbench/configs/java-v1.json``, cut to 1 MiB
 chunks, at ``batch_chunks`` 4.  Each ``.dcz`` is held to the benchmark's
-plain reference as its judge holds it, the restore to the input, and every
-coded chunk to the counted host decode route and its one ``host_decode``
-span; format 2 with the ``fast`` codebook opens no such span."""
+plain reference as its judge holds it, the restore to the input, every
+coded chunk deeper than 16 bits to the counted host decode route and its one
+``host_decode`` span, and every other coded chunk to the gap finder and K3
+under a ``decode`` span; format 2 with the ``fast`` codebook opens no
+``host_decode`` span."""
 
 import json
 import os
@@ -16,6 +18,7 @@ torch = pytest.importorskip("torch")
 
 from torch.profiler import ProfilerActivity, profile  # noqa: E402
 
+from datacomp_tpu_torch import ops  # noqa: E402
 from datacomp_tpu_torch.config import load_config  # noqa: E402
 from datacomp_tpu_torch.models import stage_metrics  # noqa: E402
 from datacomp_tpu_torch.services import GpuCompressionService, gpu_service  # noqa: E402
@@ -62,7 +65,8 @@ FAST_V2_NAMES = {"compress", "decompress", "job", "wait", "open", "read", "write
 
 def _served(path, dcz, back, compression):
     """Compress and restore ``path`` under the profiler: the spans recorded
-    and the host decode routes the restore took."""
+    and the host decode routes the restore took, then its calls of the gap
+    finder's plain version."""
     cfg = load_config(compression=compression, device={"batch_chunks": 4})
     svc = GpuCompressionService(cfg, device="cpu")
     stage_metrics.clear_spans()
@@ -70,8 +74,10 @@ def _served(path, dcz, back, compression):
         with profile(activities=[ProfilerActivity.CPU]):
             svc.compress(path, dcz)
             gpu_service.host_decode_routes.reset()
+            finder = ops.COUNTERS["find_gaps"][1].value
             svc.decompress(dcz, back)
-            routes = gpu_service.host_decode_routes.value
+            routes = (gpu_service.host_decode_routes.value,
+                      ops.COUNTERS["find_gaps"][1].value - finder)
         spans = stage_metrics.spans()
     finally:
         stage_metrics.clear_spans()
@@ -105,6 +111,11 @@ def _coded(case) -> list:
     return [c for c in case["want"]["chunks"] if not c["raw"]]
 
 
+def _deep(case) -> list:
+    """The coded chunks whose codes are deeper than the device decoder's."""
+    return [c for c in _coded(case) if c["depth"] > ops.TABLE_BITS]
+
+
 def test_container_is_the_references(case):
     mtime_ms = int(os.path.getmtime(case["path"]) * 1000)
     faults = judge.judge_request(case["got"], case["want"], case["name"], mtime_ms, 1)
@@ -117,8 +128,12 @@ def test_restore_is_the_input(case):
 
 
 def test_every_coded_chunk_takes_the_host_route(case):
+    """Every chunk is coded; those deeper than 16 bits take the host route,
+    and the others, in the job's one group, the gap finder."""
     assert _coded(case) and len(_coded(case)) == len(case["want"]["chunks"])
-    assert case["routes"] == len(_coded(case))
+    routes, finder = case["routes"]
+    assert routes == len(_deep(case))
+    assert finder == (1 if len(_deep(case)) < len(_coded(case)) else 0)
 
 
 def test_one_host_decode_leaf_a_coded_chunk(case):
@@ -126,7 +141,7 @@ def test_one_host_decode_leaf_a_coded_chunk(case):
     by_id = {s.span_id: s for s in spans}
     (req,) = [s for s in spans if s.name == "decompress"]
     routed = [s for s in spans if s.name == "host_decode"]
-    assert sorted(s.nbytes for s in routed) == sorted(c["n"] for c in _coded(case))
+    assert sorted(s.nbytes for s in routed) == sorted(c["n"] for c in _deep(case))
     parents = {s.parent for s in spans}
     for s in routed:
         assert s.stage == "DECODING" and s.span_id not in parents  # a leaf
@@ -136,8 +151,14 @@ def test_one_host_decode_leaf_a_coded_chunk(case):
         while up.parent is not None:
             up = by_id[up.parent]
         assert up is req
-    # no `decode` span is left on the route: each DECODING span is a host_decode
-    assert [s for s in spans if s.request == req.request and s.stage == "DECODING"] == routed
+    # each DECODING span is a host_decode, but the one `decode` of the group
+    # the gap finder took
+    decoding = [s for s in spans if s.request == req.request and s.stage == "DECODING"]
+    on_device = [s for s in decoding if s.name == "decode"]
+    assert [s for s in decoding if s.name != "decode"] == routed
+    assert [s.nbytes for s in on_device] == (
+        [sum(c["n"] for c in _coded(case) if c not in _deep(case))]
+        if len(_deep(case)) < len(_coded(case)) else [])
 
 
 def test_fast_v2_opens_no_host_decode_span(case):
