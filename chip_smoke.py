@@ -656,7 +656,8 @@ def run_fast_path(d: str, src: str) -> dict:
     print(f"fast path: codebook depths {depths} (0 = stored raw); .dcz byte-identical "
           f"to the host codec's, which ran at {host[0]} MB/s compress, {host[1]} MB/s "
           f"decompress", flush=True)
-    if live == 0 or launches["encode"] != live or launches["decode"] != live:
+    # one launch a group, so one a coded chunk at batch_chunks 1
+    if live == 0 or launches["encode_batch"] != live or launches["decode_batch"] != live:
         fail(f"fast path: K2/K3 launches {launches} != {live} chunks not stored raw")
     if launches["histogram"] != res["probes"] or res["decode_routes"]:
         fail(f"fast path: K1 launches {launches['histogram']} or host decode routes "
@@ -689,8 +690,9 @@ def run_device_v2(d: str, src: str) -> dict:
         depths.append(max_code_len(meta.code_lengths))
     coded = sum(1 for dep in depths if dep > 0)
     shallow = sum(1 for dep in depths if 0 < dep <= TABLE_BITS)
-    want = {"histogram": coded + res["probes"], "codebook": coded, "encode": coded,
-            "decode": shallow}
+    want = {"histogram": res["probes"], "codebook": 0, "encode": 0, "decode": 0,
+            "histogram_batch": coded, "codebook_batch": coded, "encode_batch": coded,
+            "decode_batch": shallow}
     got = {name: res["launches"][name] for name in want}
     print(f"device v2: codebook depths {depths} (0 = stored raw); launches {got}, derived "
           f"from the container {want}; host decode routes {res['decode_routes']} for "
@@ -713,8 +715,9 @@ def run_device_v1(d: str, src: str) -> dict:
         fail("device v1: the port's .dcz differs from the host codec's")
     depths = [max_code_len(c.code_lengths) for c in read_container(dcz)[0].chunks]
     chunks, shallow = len(depths), sum(1 for dep in depths if 0 < dep <= TABLE_BITS)
-    want = {"histogram": chunks + res["probes"], "codebook": chunks, "encode": chunks,
-            "decode": 0, "find_gaps": shallow, "decode_batch": shallow}
+    want = {"histogram": res["probes"], "codebook": 0, "encode": 0, "decode": 0,
+            "histogram_batch": chunks, "codebook_batch": chunks, "encode_batch": chunks,
+            "find_gaps": shallow, "decode_batch": shallow}
     got = {name: res["launches"][name] for name in want}
     print(f"device v1: {chunks} chunks of depths {depths}; .dcz byte-identical to the host "
           f"codec's (which ran at {host[0]} / {host[1]} MB/s); launches {got}, expected "
@@ -890,8 +893,8 @@ def expected_launches(dcz: str, device_codebook: bool, batch: int, ranks: int = 
     """The launches and host decode routes a compress → decompress of ``dcz``
     at ``batch_chunks`` ``batch`` implies: each group of ``batch`` chunks
     (of each rank's round-robin stripe, with ``ranks`` ranks) runs the
-    batched kernels once when two or more of its members reach the device,
-    the unbatched kernels once when one does.  Compress: the chunks not
+    batched kernels once when any of its members reaches the device, a
+    lone member being a group of one.  Compress: the chunks not
     stored raw; decompress: chunks of depth 1 to 16 (the rest that are not
     raw take the host route), where a v1 group with any runs K5 and the
     batched K3 once, however many.  K1 also runs once a service probe."""
@@ -916,10 +919,7 @@ def expected_launches(dcz: str, device_codebook: bool, batch: int, ranks: int = 
         for names, members in (((("histogram", "codebook") if device_codebook else ())
                                 + ("encode",), coded), (("decode",), on_k3 if v2 else 0)):
             for name in names:
-                if members > 1:
-                    want[f"{name}_batch"] += 1
-                elif members == 1:
-                    want[name] += 1
+                want[f"{name}_batch"] += members > 0
     want["histogram"] += probes  # by default one for each CLI command's service
     return want, routes
 
@@ -1277,8 +1277,7 @@ def check_corpus_bench(d: str) -> dict:
              for b, rep in reports.items()}
     if len(sizes["gpu"]) != 7 or sizes["gpu"] != sizes["cpu"]:
         fail(f"corpus bench: gpu sizes {sizes['gpu']} differ from cpu sizes {sizes['cpu']}")
-    if launches["cpu"] or not launches["gpu"].get("encode", 0) + launches["gpu"].get(
-            "encode_batch", 0):
+    if launches["cpu"] or not launches["gpu"].get("encode_batch", 0):
         fail(f"corpus bench: launches {launches}: K2 must run on gpu, nothing on cpu")
     totals = {b: rep["totals"] for b, rep in reports.items()}
     print(f"12a corpus: gen {SURFACE_CORPUS_MB} MB in {gen_s} s; bench --corpus gpu and cpu: compressed sizes "
@@ -1409,7 +1408,7 @@ def check_resume(d: str, src: str) -> dict:
         fail("resume: the resumed .dcz differs from phase 6's")
     if os.path.exists(dcz + pipeline.PARTIAL_SUFFIX):
         fail("resume: the .partial sidecar is left behind")
-    if launches.get("encode", 0) != coded or launches.get("encode_batch", 0):
+    if launches.get("encode_batch", 0) != coded or launches.get("encode", 0):
         fail(f"resume: launches {launches}; K2 once for each of {coded} coded chunks expected")
     print(f"12e resume --last-chunk 2 ({secs} s): .dcz byte-identical to phase 6's; "
           f"launches {launches} for chunks 3-{len(header.chunks) - 1} ({coded} coded)",
@@ -1546,7 +1545,8 @@ def run_cli_options(d: str, src: str) -> dict:
         fail("15a: the --backend gpu .dcz differs from the host codec's")
     depths = [max_code_len(c.code_lengths) for c in read_container(dcz)[0].chunks]
     coded = sum(1 for dep in depths if dep > 0)
-    want = {name: 0 for name in res["launches"]} | {"encode": coded, "decode": coded}
+    want = {name: 0 for name in res["launches"]} | {"encode_batch": coded,
+                                                    "decode_batch": coded}
     if max(depths) > cap or coded == 0 or res["launches"] != want or res["decode_routes"]:
         fail(f"15a: depths {depths}, launches {res['launches']} (want {want}), host decode "
              f"routes {res['decode_routes']}")
@@ -1668,23 +1668,26 @@ def main() -> int:
                 "plain_ms": hist["plain_ms"], **bound(*histogram_work([valid])),
                 "library_ms": ms["torch.bincount", "random"]["ms"]}
 
+    # the codec path launches every kernel through its batched entry point
+    # (a lone chunk is a group of one): the rows' "launches" count those of
+    # the batch-1 legs, one a coded chunk
     kernels = [
         {"name": "histogram", "route": "cuda", "source": source.format("histogram"),
          "replaces": "datacomp_tpu/ops/histogram_pallas.py:114",
-         "launches": dev2["launches"]["histogram"], **hist},
+         "launches": dev2["launches"]["histogram_batch"], **hist},
         {"name": "encode", "route": "cuda", "source": source.format("encode"),
          "replaces": "datacomp_tpu/ops/encode_merge.py:228",
-         "launches": fast["launches"]["encode"], **codec["text"]["encode"]},
+         "launches": fast["launches"]["encode_batch"], **codec["text"]["encode"]},
         {"name": "decode", "route": "cuda", "source": source.format("decode"),
          "replaces": "datacomp_tpu/ops/decode.py:133",
-         "launches": fast["launches"]["decode"], **codec["text"]["decode"],
+         "launches": fast["launches"]["decode_batch"], **codec["text"]["decode"],
          "sync_rounds": {kind: r["sync_rounds"] for kind, r in codec.items()},
          "direct_route": {key: codec["dense"][key] for key in ("bits_per_byte",
                                                                "direct_subblocks")}
          | {key: codec["dense"]["decode"][key] for key in ("ms", "device_ms")}},
         {"name": "codebook", "route": "cuda", "source": source.format("codebook"),
          "replaces": "datacomp_tpu/ops/codebook.py:37",
-         "launches": dev2["launches"]["codebook"], **cbook},
+         "launches": dev2["launches"]["codebook_batch"], **cbook},
         # the JAX package decodes format 1 on the host: K5 replaces no kernel
         {"name": "find_gaps", "route": "cuda", "source": source.format("gap_finder"),
          "replaces": None, "launches": dev1["launches"]["find_gaps"],
@@ -1705,8 +1708,9 @@ def main() -> int:
                         "local_mesh_launches": local["dev2" if name != "decode" else "fast"]
                         ["launches"][f"{name}_batch"],
                         "rows": len(BATCH_VALID), **batched[name], "library_ms": None})
-    for entry in kernels:  # phase 14's run of the headline
-        entry["headline_launches"] = headline["launches"].get(entry["name"], 0)
+    for entry in kernels:  # phase 14's run of the headline, batched entry points counted
+        got = headline["launches"]
+        entry["headline_launches"] = got.get(f"{entry['name']}_batch", got.get(entry["name"], 0))
     print(card_line())
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -10,7 +10,8 @@ GPU in a lone process):
    codec's ``encode_chunk_batch`` in groups of ``batch_chunks`` (the GPU
    codec: one launch of each batched kernel a group), or, with several
    local devices in device-codebook v2, in groups of one chunk a device
-   through the sharded compress step (:func:`_encode_group_local`);
+   through the codec's ``encode_group`` and the sharded compress step
+   (:func:`_encode_rows_local`);
 3. all-gathers every chunk's metadata (sizes, SHA-256, code lengths, gap
    arrays) over the gloo group, derives every chunk's offset identically
    (an exclusive scan in chunk order), and ``pwrite``s its payloads there;
@@ -31,6 +32,7 @@ from __future__ import annotations
 import os
 import struct
 from dataclasses import dataclass
+from functools import partial
 from typing import List, Optional, Sequence
 
 import numpy as np
@@ -210,66 +212,48 @@ def _default_mesh(cfg, backend: str) -> Mesh:
     return make_mesh(devices=("cpu",) if backend == "cpu" else local_devices(cfg))
 
 
-def _encode_group_local(step, codec, datas, metrics, mesh: Mesh) -> list:
+def _encode_rows_local(step, codec, mesh: Mesh, members: list, metrics) -> list:
     """Encode up to one chunk a local device through the sharded compress
-    step (``_encode_group_mesh``, ``multihost.py:163-227``).
+    step (``_encode_group_mesh``, ``multihost.py:163-227``): the
+    ``encode_rows`` of :meth:`GpuChunkCodec.encode_group`, which has run
+    the host prepass, so empty and raw-stored chunks skip the step and every
+    byte equals the single-device service's.
 
-    The host prepass (SHA-256, host histogram, raw-store decision) runs for
-    each chunk exactly as the single-device codec's does
-    (``GpuChunkCodec._host_prepass``), so empty and raw-stored chunks skip
-    the step and every byte equals the single-device service's; the other
-    chunks take one device each, in order, and a device without one gets a
-    row of ``valid_len`` 0, which encodes to nothing.  Each device's row
-    comes back in one copy: its total bits, lengths, gap array and live
-    words, sized by the prepass's optimal bits as the single-device path
-    sizes them, and its depth and total are checked as the single-device
-    path checks them (a total other than the prepass's raises).  The JAX
-    step's device-side raw store (``multihost.py:211-216``) is not copied:
-    the prepass has already stored raw every chunk whose optimal code needs
-    8 bits a byte, so that branch could only turn a wrong total into a
-    different file."""
+    The members take one device each, in order, and a device without one
+    gets a row of ``valid_len`` 0, which encodes to nothing.  Each device's
+    row comes back through :meth:`GpuChunkCodec.unpack_rows` in one copy,
+    its depth and total checked as the single-device path checks them.  The
+    JAX step's device-side raw store (``multihost.py:211-216``) is not
+    copied: the prepass has already stored raw every chunk whose optimal
+    code needs 8 bits a byte, so that branch could only turn a wrong total
+    into a different file."""
     from ..models import Stage
-    from ..services.gpu_service import _fetch
+    from ..services.gpu_service import upload_rows
 
-    results: list = [None] * len(datas)
-    live = []  # (index, data, sha, opt_bits)
-    for i, data in enumerate(datas):
-        sha, _lengths, _codes, opt_bits, finished = codec._host_prepass(data, metrics)
-        if finished is not None:
-            results[i] = finished
-        else:
-            live.append((i, data, sha, opt_bits))
-    if not live:
-        return results
     devices = mesh.local_devices
-    empty = np.zeros(0, np.uint8)
-    rows = [m[1] for m in live] + [empty] * (len(devices) - len(live))
-    with metrics.timed(Stage.ENCODING, sum(m[1].size for m in live)):
-        shards = [codec._upload([row], dev) for row, dev in zip(rows, devices)]
+    rows = [m.data for m in members] + [np.zeros(0, np.uint8)] * (len(devices) - len(members))
+    with metrics.timed(Stage.ENCODING, sum(m.data.size for m in members)):
+        shards = [upload_rows([row], codec.padded_size, dev) for row, dev in zip(rows, devices)]
         outs = step(shards, [row.size for row in rows], len(devices) * mesh.size)
-        for (i, data, sha, opt_bits), (_, lengths, _, words, total_bits, gaps, _, _) in zip(
-                live, outs):
-            nsub = (data.size + codec.subblock - 1) // codec.subblock
-            flat = _fetch([total_bits, lengths[0], gaps[0, :nsub],
-                           words[0, : codec._live_words(opt_bits)]])
-            results[i] = codec._v2_chunk(flat, nsub, sha, opt_bits)
-    return results
+        return [codec.unpack_rows([m], words, totals, gaps, lengths)[0]
+                for m, (_, lengths, _, words, totals, gaps, _, _) in zip(members, outs)]
 
 
 def _decode_group_local(step, codec, header, payloads, metas, metrics, mesh: Mesh) -> list:
     """Decode up to one chunk a local device through the sharded decompress
     step (``_decode_group_mesh``, ``multihost.py:402-483``).  Routing is the
-    single-device codec's: raw-stored chunks pass through, and the chunks it
-    sends to the host (codes deeper than 16 bits) take its counted host
-    route (``GpuChunkCodec.decode_chunk``); the rest take one device each,
-    in order, their stream, gap array and tables in one copy up and their
-    bytes in one copy back.  A device without a chunk launches nothing."""
+    single-device codec's (``gpu_service.decode_route``): raw-stored chunks
+    pass through, and the chunks it sends to the host (codes deeper than 16
+    bits) take its counted host route (``GpuChunkCodec.decode_chunk``); the
+    rest take one device each, in order, their stream, gap array and tables
+    in one copy up and their bytes in one copy back.  A device without a
+    chunk launches nothing."""
     from ..models import Stage
     from ..ops import build_decode_tables
-    from ..services.gpu_service import _decodes_on_device
+    from ..services.gpu_service import decode_inputs, decode_route
     from .sharded import check_decompress_step_params
 
-    live = [j for j, m in enumerate(metas) if _decodes_on_device(m, header)]
+    live = [j for j, m in enumerate(metas) if decode_route(m, header) == "device"]
     results = [None if j in live else codec.decode_chunk(p, m, header, metrics)
                for j, (p, m) in enumerate(zip(payloads, metas))]
     if not live:
@@ -279,7 +263,7 @@ def _decode_group_local(step, codec, header, payloads, metas, metrics, mesh: Mes
     with metrics.timed(Stage.HUFFMAN_TREE_BUILD):
         tables = [build_decode_tables(metas[j].code_lengths) for j in live]
     with metrics.timed(Stage.DECODING, sum(metas[j].original_size for j in live)):
-        parts = [(*codec._decode_inputs([payloads[j]], [metas[j]], [table], dev),
+        parts = [(*decode_inputs([payloads[j]], [metas[j]], [table], dev),
                   [metas[j].original_size])
                  for j, table, dev in zip(live, tables, mesh.local_devices)]
         outs = step(*zip(*parts))
@@ -302,9 +286,10 @@ def compress_multihost(
     its payloads at their global offsets, and rank 0 appends the footer.
     With several local devices, the GPU backend and device-codebook v2 (the
     condition of ``multihost.py:294-300``), the stripe goes instead in
-    groups of one chunk a device through the sharded compress step
-    (:func:`_encode_group_local`).  The output equals the single-process,
-    single-device pipeline's byte for byte.
+    groups of one chunk a device through the codec's ``encode_group``,
+    whose hashes run on the same helper thread, and the sharded compress
+    step (:func:`_encode_rows_local`).  The output equals the
+    single-process, single-device pipeline's byte for byte.
 
     Every rank of the mesh calls this together.  Payloads spill to a file of
     the rank's own beside the output while the stripe encodes, so memory
@@ -333,7 +318,8 @@ def compress_multihost(
     if on_mesh:
         from .sharded import make_sharded_compress_step
 
-        step = make_sharded_compress_step(mesh, chunk_size, subblock)
+        encode_rows = partial(_encode_rows_local,
+                              make_sharded_compress_step(mesh, chunk_size, subblock), codec, mesh)
     group = len(mesh.local_devices) if on_mesh else max(1, codec.batch_chunks)
 
     spill_path = f"{output_path}.spill{rank}"
@@ -355,7 +341,7 @@ def compress_multihost(
                         f.seek(off)
                         datas.append(np.frombuffer(f.read(n), dtype=np.uint8))
                 if on_mesh:
-                    encs = _encode_group_local(step, codec, datas, metrics, mesh)
+                    encs = codec.encode_group(datas, metrics, encode_rows)
                 else:
                     encs = codec.encode_chunk_batch(datas, metrics)
                 for k, enc in zip(range(g0, g0 + len(gidx)), encs):

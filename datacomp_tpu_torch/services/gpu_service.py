@@ -27,7 +27,9 @@ Port of ``datacomp_tpu/services/tpu_service.py`` to PyTorch and CUDA:
   hands the codec groups of chunks, and each group's device members run
   every kernel once (``histogram_batch``, ``codebook_batch``,
   ``encode_batch``, ``decode_batch``), with one upload and one copy back, as
-  ``TpuChunkCodec.encode_chunk_batch`` and ``decode_chunk_batch`` do.
+  ``TpuChunkCodec.encode_chunk_batch`` and ``decode_chunk_batch`` do.  A
+  lone chunk is a group of one: ``encode_chunk`` and ``decode_chunk`` take
+  the same path.
 
 Unlike the JAX service, whose ``device.fallback_on_error`` is on by default,
 there is no fallback to the CPU: a device error propagates, and a config
@@ -41,7 +43,7 @@ from __future__ import annotations
 import os
 import time
 from concurrent.futures import Future, ThreadPoolExecutor, wait
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -60,13 +62,8 @@ from ..ops import (
     MAX_CODE_LEN,
     TABLE_BITS,
     build_decode_tables,
-    codebook,
     codebook_batch,
-    codebook_to_torch,
-    decode,
     decode_batch,
-    decode_tables_to_torch,
-    encode,
     encode_batch,
     find_gaps,
     gap_finder_fits,
@@ -84,9 +81,12 @@ from .base import CompressionService, FrequencyService, ProgressCallback
 from .cpu_service import CpuChunkCodec
 from .pipeline import ChunkCodec, ChunkedPipeline, EncodedChunk
 
-#: chunks that bypassed the device because of their codebook
-host_encode_routes = LaunchCounter()  # codes deeper than the encoder's 32 bits
-host_decode_routes = LaunchCounter()  # codes deeper than 16 bits, or no gap array
+#: chunks that bypassed the device because of their codebook.  Nothing
+#: increments ``host_encode_routes``: a host codebook deeper than the
+#: encoder's 32 bits never exists (``build_code_lengths`` raises past 32
+#: bits), so every chunk encodes on the device; readers of the counts keep it
+host_encode_routes = LaunchCounter()
+host_decode_routes = LaunchCounter()  # the chunks decode_route sends to the host
 
 #: chunks of fewer bytes are hashed on their worker.  On the H100 host
 #: (gVisor, 8 vCPUs) handing a hash to a helper thread and joining it costs
@@ -242,49 +242,85 @@ def _split(flat: np.ndarray, sizes: list) -> list:
     return np.split(flat, np.cumsum(sizes)[:-1])
 
 
-def _is_raw_stored(meta, header) -> bool:
-    return (
-        header.version >= ct.VERSION_V2
-        and not meta.code_lengths.any()
-        and meta.compressed_size == meta.original_size
-    )
+def decode_route(meta, header) -> str:
+    """Where a chunk restores, for every codec path: ``"raw"`` (a v2 chunk
+    stored raw passes through), ``"device"`` (codes of 1 to 16 bits: K3,
+    from the stored gap array in v2 and from the gap finder K5's in v1, whose
+    bits must fit K5's uint32 gaps) or ``"host"`` (the counted host route:
+    deeper codes, a v2 chunk without a gap array, a v1 stream too long for
+    K5, an empty v1 chunk)."""
+    v2 = header.version >= ct.VERSION_V2
+    if v2 and not meta.code_lengths.any() and meta.compressed_size == meta.original_size:
+        return "raw"
+    if not 0 < max_code_len(meta.code_lengths) <= TABLE_BITS:
+        return "host"
+    if v2:
+        fits = meta.gap_bits is not None and meta.gap_bits.size > 0 and header.subblock_symbols > 0
+    else:
+        fits = gap_finder_fits(-(-meta.compressed_size // 4) + 2, meta.original_size)
+    return "device" if fits else "host"
 
 
-def _decodes_on_device(meta, header) -> bool:
-    """A v2 chunk with a gap array and codes of 1 to 16 bits: K3 takes it."""
-    return (
-        header.version >= ct.VERSION_V2
-        and meta.gap_bits is not None
-        and meta.gap_bits.size > 0
-        and header.subblock_symbols > 0
-        and 0 < max_code_len(meta.code_lengths) <= TABLE_BITS
-    )
+def upload_rows(datas: list, row_bytes: int, device) -> torch.Tensor:
+    """The chunks as the rows of one uint8[len(datas), row_bytes] tensor on
+    ``device``: each copied into its row, the row's tail zeroed on the
+    device.  A group's rows are its live members only: the JAX service pads
+    a group with empty chunks up to ``batch_chunks`` rows so that one static
+    executable serves every group, and an empty row encodes to nothing, so
+    leaving them out changes no byte."""
+    x = torch.empty((len(datas), row_bytes), dtype=torch.uint8, device=device)
+    for row, data in zip(x, datas):
+        row[: data.size].copy_(_host_tensor(data))
+        row[data.size :].zero_()
+    return x
 
 
-def _finds_gaps_on_device(meta, header) -> bool:
-    """A coded v1 chunk with codes of 1 to 16 bits, whose bits fit K5's
-    uint32 gaps: K5 finds its gap array on the device, and K3 decodes it from
-    there."""
-    return (
-        header.version < ct.VERSION_V2
-        and 0 < max_code_len(meta.code_lengths) <= TABLE_BITS
-        and gap_finder_fits(-(-meta.compressed_size // 4) + 2, meta.original_size)
-    )
+def decode_inputs(payloads, metas, tables, device) -> tuple:
+    """The rows' streams, gap arrays and decode tables on ``device``, in one
+    copy: ``(words, word_offsets, gaps, gap_offsets, limits, adj, sym)`` as
+    :func:`ops.decode_batch` takes them; a chunk without a gap array (v1) has
+    an empty one."""
+    rows = len(metas)
+    words = [payload_to_words(p).view(np.int32) for p in payloads]
+    gaps = [np.zeros(0, np.int32) if m.gap_bits is None
+            else m.gap_bits.astype(np.uint32).view(np.int32) for m in metas]
+    word_offsets = np.cumsum([0] + [w.size for w in words]).tolist()
+    gap_offsets = np.cumsum([0] + [g.size for g in gaps]).tolist()
+    limits, adj, sym = (np.stack([t[k] for t in tables]).astype(np.int32) for k in range(3))
+    host = np.concatenate(words + gaps + [limits.ravel(), adj.ravel(), sym.ravel()])
+    t = _host_tensor(host).to(device)
+    w, g = word_offsets[-1], gap_offsets[-1]
+    pieces = torch.split(t, [w, g, TABLE_BITS * rows, TABLE_BITS * rows, 256 * rows])
+    return (pieces[0].view(torch.uint32), word_offsets, pieces[1].view(torch.uint32),
+            gap_offsets, pieces[2].view(rows, TABLE_BITS), pieces[3].view(rows, TABLE_BITS),
+            pieces[4].view(rows, 256))
+
+
+class PreparedChunk(NamedTuple):
+    """A chunk bound for the device after its host prepass."""
+
+    data: np.ndarray
+    sha: object  # its digest, or the future of one
+    lengths: Optional[np.ndarray]  # the host codebook; None where the device builds it
+    codes: Optional[np.ndarray]
+    #: the chunk's exact encoded size under its codebook; in device-codebook
+    #: v1 None until K4's lengths come back
+    opt_bits: Optional[int]
 
 
 class GpuChunkCodec(ChunkCodec):
-    """Per-chunk device codec: host codebook → device encode (K2), or in
-    device-codebook mode histogram (K1) → codebook (K4) → encode (K2) on the
-    device; gap-array device decode (K3), from the stored gap array in v2
-    containers and from the gap finder's (K5) in v1.  A group of
-    chunks (:meth:`encode_chunk_batch`, :meth:`decode_chunk_batch`) launches
-    each kernel's batched entry point once for all of its device members."""
+    """Device codec for groups of chunks, a lone chunk being a group of one:
+    host codebook → encode (K2), or in device-codebook mode histogram (K1) →
+    codebook (K4) → encode (K2) on the device; gap-array decode (K3), from
+    the stored gap arrays in v2 containers and from the gap finder's (K5) in
+    v1.  Each group launches every kernel's batched entry point once for all
+    of its device members, with one upload and one copy back."""
 
     def __init__(self, config: AppConfig, device: torch.device):
         self.config = config
         self.device = device
         self.freq = GpuFrequencyService(config, device)
-        self._cpu = CpuChunkCodec(config)  # host histogram, v1 and deep decode
+        self._cpu = CpuChunkCodec(config)  # host histogram and deep decode
         self.padded_size = config.chunk_size_bytes
         self.subblock = config.compression.subblock_symbols
         # an optimal code spends at most H + 1 <= 9 bits a byte on the chunk
@@ -330,37 +366,33 @@ class GpuChunkCodec(ChunkCodec):
                     e.sha256 = e.sha256.result()
         return encs
 
-    def _host_prepass(self, data: np.ndarray, metrics: StageMetrics, sha=None):
-        """SHA-256, host histogram, host codebook and the raw-store decision
-        (``TpuChunkCodec._host_prepass``).  ``sha`` is the chunk's digest, or
-        the future of one (:meth:`_start_hash`), and passes through to the
-        result; without it the hash runs here first.
+    def _host_prepass(self, data: np.ndarray, sha, metrics: StageMetrics):
+        """Host histogram, host codebook and the raw-store decision
+        (``TpuChunkCodec._host_prepass``); ``sha`` is the chunk's digest, or
+        the future of one, and passes through.
 
-        Returns ``(sha, lengths, codes, opt_bits, finished)``; ``finished`` is
-        a complete :class:`EncodedChunk` (empty input, or an incompressible
-        v2 chunk stored raw) that never touches the device, else None.
-        ``opt_bits`` is the chunk's exact encoded size under the codebook.
-        In device-codebook mode ``lengths`` and ``codes`` are None; in v2
-        ``opt_bits`` then comes from the uncapped host ``fast`` code, an
-        optimal code over the same histogram as the device's, and v1 has
-        neither histogram nor ``opt_bits`` (None)."""
+        Returns a complete :class:`EncodedChunk` for a chunk that never
+        touches the device (empty input, or an incompressible v2 chunk stored
+        raw), else a :class:`PreparedChunk`.  In device-codebook mode its
+        ``lengths`` and ``codes`` are None; in v2 ``opt_bits`` then comes
+        from the uncapped host ``fast`` code, an optimal code over the same
+        histogram as the device's, and v1 has neither histogram nor
+        ``opt_bits``."""
         n = data.size
         comp = self.config.compression
         device_codebook = comp.codebook_mode == "device"
         v2 = comp.format_version >= 2
-        if sha is None:
-            sha = self._hash(data, metrics, None)
         if n == 0:
-            return sha, None, None, 0, EncodedChunk(b"", np.zeros(256, np.int32), sha, None)
+            return EncodedChunk(b"", np.zeros(256, np.int32), sha, None)
         if device_codebook and not v2:
-            return sha, None, None, None, None
+            return PreparedChunk(data, sha, None, None, None)
         with metrics.timed(Stage.FREQUENCY_ANALYSIS, n):
             hist = self._cpu.freq.compute_histogram(data)
         lengths = codes = None
         with metrics.timed(Stage.HUFFMAN_TREE_BUILD, n):
             if device_codebook:  # raises, as the host codec does, past 32 bits
                 opt_lengths = huffman.build_code_lengths(hist, mode="fast")
-            else:
+            else:  # raises past 32 bits too, so K2 always takes the codebook
                 lengths, codes = huffman.build_codebook(
                     hist, mode=comp.codebook_mode, max_len=comp.effective_max_code_len(),
                 )
@@ -368,192 +400,125 @@ class GpuChunkCodec(ChunkCodec):
         opt_bits = int(hist @ opt_lengths.astype(np.int64))
         if v2 and opt_bits >= n * 8:
             # incompressible: store raw (v2 marker: all-zero lengths)
-            return sha, lengths, codes, opt_bits, EncodedChunk(
-                data.tobytes(), np.zeros(256, np.int32), sha, None
-            )
-        return sha, lengths, codes, opt_bits, None
-
-    @staticmethod
-    def _host_route(lengths) -> bool:
-        """True, and counted, for a host codebook deeper than the encoder's
-        32 bits: such a chunk encodes on the host."""
-        if lengths is not None and max_code_len(lengths) > MAX_CODE_LEN:
-            host_encode_routes.add()
-            return True
-        return False
-
-    def _upload(self, datas: list, device=None) -> torch.Tensor:
-        """The chunks as the rows of one uint8[len(datas), padded_size]
-        tensor on ``device`` (by default the codec's): each copied into its
-        row, the row's tail zeroed on the device.  A group's rows are its
-        live members only: the JAX service pads a group with empty chunks up
-        to ``batch_chunks`` rows so that one static executable serves every
-        group, and an empty row encodes to nothing, so leaving them out
-        changes no byte."""
-        x = torch.empty((len(datas), self.padded_size), dtype=torch.uint8,
-                        device=device or self.device)
-        for row, data in zip(x, datas):
-            row[: data.size].copy_(_host_tensor(data))
-            row[data.size :].zero_()
-        return x
+            return EncodedChunk(data.tobytes(), np.zeros(256, np.int32), sha, None)
+        return PreparedChunk(data, sha, lengths, codes, opt_bits)
 
     def encode_chunk(self, data: np.ndarray, metrics: StageMetrics) -> EncodedChunk:
-        sha = self._start_hash(data, metrics)
-        try:
-            _, lengths, codes, opt_bits, enc = self._host_prepass(data, metrics, sha)
-            if enc is None:
-                if self._host_route(lengths):
-                    enc = self._cpu.encode_chunk(data, metrics)
-                else:
-                    enc = self._encode_prepared(data, sha, lengths, codes, opt_bits, metrics)
-            return self._joined([enc])[0]
-        finally:
-            _settle([sha])
-
-    def _encode_prepared(self, data, sha, lengths, codes, opt_bits, metrics) -> EncodedChunk:
-        """One chunk on the device, after its host prepass."""
-        if lengths is None:
-            if self.config.compression.format_version >= 2:
-                return self._encode_device_codebook_v2(data, sha, opt_bits, metrics)
-            return self._encode_device_codebook_v1(data, sha, metrics)
-
-        n = data.size
-        v2 = self.config.compression.format_version >= 2
-        with metrics.timed(Stage.ENCODING, n):
-            with span("upload"):
-                x = self._upload([data])[0]
-                lens_t, codes_t = codebook_to_torch(lengths, codes, self.device)
-            with span("launch"):
-                words, total_bits, gaps = encode(
-                    x, n, lens_t, codes_t, self.out_words, self.subblock if v2 else 0
-                )
-            with span("fetch"):
-                tb = int(total_bits)
-                live = words[: (tb + 31) // 32].cpu().numpy()
-                gap_bits = None
-                if v2:
-                    gap_bits = gaps[: (n + self.subblock - 1) // self.subblock].cpu().numpy()
-            with span("unpack"):
-                self._check_total(tb, opt_bits)
-                return EncodedChunk(words_to_bytes(live, tb), lengths.astype(np.int32), sha,
-                                    gap_bits)
-
-    def _encode_device_codebook_v2(self, data, sha, opt_bits: int, metrics) -> EncodedChunk:
-        """K1 → K4 → K2 with nothing fetched in between, then ONE copy back of
-        the total bits, lengths, gap array and live words (the fused branch of
-        ``TpuChunkCodec._encode_chunk``).  ``opt_bits`` sizes the live words
-        before anything is fetched; the device's total must equal it."""
-        n = data.size
-        nsub = (n + self.subblock - 1) // self.subblock
-        nw = self._live_words(opt_bits)
-        with metrics.timed(Stage.ENCODING, n):
-            with span("upload"):
-                x = self._upload([data])[0]
-            with span("launch"):
-                lens_t, codes_t = codebook(histogram(x, n))
-                words, total_bits, gaps = encode(x, n, lens_t, codes_t, self.out_words,
-                                                 self.subblock)
-            with span("fetch"):
-                flat = _fetch([total_bits, lens_t, gaps[:nsub], words[:nw]])
-            with span("unpack"):
-                return self._v2_chunk(flat, nsub, sha, opt_bits)
-
-    def _v2_chunk(self, flat: np.ndarray, nsub: int, sha: bytes, opt_bits: int) -> EncodedChunk:
-        """A device-codebook v2 chunk from its one copy back (``flat``, int32:
-        total bits, lengths, ``nsub`` gap entries, live words), its depth and
-        total checked."""
-        tb = int(flat[:2].view(np.int64)[0])
-        lengths = flat[2:258].copy()
-        _check_depth(lengths)
-        self._check_total(tb, opt_bits)
-        return EncodedChunk(words_to_bytes(flat[258 + nsub :].view(np.uint32), tb), lengths, sha,
-                            flat[258 : 258 + nsub].view(np.uint32).copy())
-
-    def _encode_device_codebook_v1(self, data, sha, metrics) -> EncodedChunk:
-        """K1 → K4 on the device, one copy back of the histogram and lengths
-        (the depth is checked before K2 runs, and the histogram gives the live
-        word count), K2, then one copy of the total bits and live words (the
-        v1 device branch of ``TpuChunkCodec._encode_chunk``)."""
-        n = data.size
-        with metrics.timed(Stage.FREQUENCY_ANALYSIS, n):
-            with span("upload"):
-                x = self._upload([data])[0]
-            with span("launch"):
-                hist_t = histogram(x, n)
-        with metrics.timed(Stage.HUFFMAN_TREE_BUILD, n):
-            with span("launch"):
-                lens_t, codes_t = codebook(hist_t)
-            with span("fetch"):
-                hist, lengths = torch.cat([hist_t, lens_t]).cpu().numpy().reshape(2, 256)
-            with span("unpack"):
-                _check_depth(lengths)
-                opt_bits = int(hist.astype(np.int64) @ lengths.astype(np.int64))
-        with metrics.timed(Stage.ENCODING, n):
-            with span("launch"):
-                words, total_bits, _ = encode(x, n, lens_t, codes_t, self.out_words)
-            with span("fetch"):
-                flat = _fetch([total_bits, words[: self._live_words(opt_bits)]])
-            with span("unpack"):
-                tb = int(flat[:2].view(np.int64)[0])
-                self._check_total(tb, opt_bits)
-                return EncodedChunk(words_to_bytes(flat[2:].view(np.uint32), tb), lengths.copy(),
-                                    sha, None)
-
-    # -- batched encode -----------------------------------------------------
+        """A group of one."""
+        return self.encode_chunk_batch([data], metrics)[0]
 
     def encode_chunk_batch(self, datas, metrics: StageMetrics) -> list:
-        """Encode a group of chunks (``TpuChunkCodec.encode_chunk_batch``).
+        """Encode a group of chunks (``TpuChunkCodec.encode_chunk_batch``):
+        its device members in one launch of each kernel (:meth:`_encode_rows`)."""
+        return self.encode_group(datas, metrics, self._encode_rows)
 
-        Every member's hash starts first, then each member's host prepass
-        runs; the digests are joined once the members are built.  Empty and
-        raw-stored members
-        are then finished, and a host codebook deeper than 32 bits takes the
-        counted host route; every other member joins one device group, whose
-        kernels each launch once, with one copy back (two in device-codebook
-        v1).  A group of one takes the per-chunk path."""
-        if len(datas) == 1 or self.batch_chunks <= 1:
-            return [self.encode_chunk(d, metrics) for d in datas]
+    def encode_group(self, datas, metrics: StageMetrics, encode_rows) -> list:
+        """The host side of a group's encode, and the mesh route's seam into
+        the codec (``parallel/multihost.py``, which puts the device members
+        on a device each).
+
+        Every member's SHA-256 starts on the hash pool, then each member's
+        host prepass runs: empty and raw-stored members are finished there,
+        and ``encode_rows(members, metrics)`` turns the others, a list of
+        :class:`PreparedChunk` in order, into their :class:`EncodedChunk`.
+        The digests are joined once every member is built, and no hash is
+        left running whatever is raised."""
         shas = [self._start_hash(d, metrics) for d in datas]
         try:
-            return self._joined(self._encode_members(datas, shas, metrics))
+            results = [self._host_prepass(d, sha, metrics) for d, sha in zip(datas, shas)]
+            rows = [i for i, r in enumerate(results) if isinstance(r, PreparedChunk)]
+            if rows:
+                for i, enc in zip(rows, encode_rows([results[i] for i in rows], metrics)):
+                    results[i] = enc
+            return self._joined(results)
         finally:
             _settle(shas)
 
-    def _encode_members(self, datas: list, shas: list, metrics: StageMetrics) -> list:
-        """The group's members, each digest as :meth:`_host_prepass` passes
-        it through."""
-        results: list = [None] * len(datas)
-        group = []  # (index, data, sha, lengths, codes, opt_bits)
-        for i, data in enumerate(datas):
-            sha, lengths, codes, opt_bits, finished = self._host_prepass(data, metrics, shas[i])
-            if finished is not None:
-                results[i] = finished
-            elif self._host_route(lengths):
-                results[i] = self._cpu.encode_chunk(data, metrics)
-            else:
-                group.append((i, data, sha, lengths, codes, opt_bits))
-        if len(group) == 1:
-            i, *member = group[0]
-            results[i] = self._encode_prepared(*member, metrics)
-        elif group:
-            if group[0][3] is not None:  # the mode decides: every member alike
-                encs = self._encode_group(group, metrics)
-            elif self.config.compression.format_version >= 2:
-                encs = self._encode_group_device_codebook_v2(group, metrics)
-            else:
-                encs = self._encode_group_device_codebook_v1(group, metrics)
-            for (i, *_), enc in zip(group, encs):
-                results[i] = enc
-        return results
-
-    def _members(self, group: list) -> tuple:
-        """The group's (datas, valid lengths, gap-array lengths)."""
-        datas = [m[1] for m in group]
+    def _encode_rows(self, members: list, metrics: StageMetrics) -> list:
+        """The device members of a group (one codebook mode for all), each
+        kernel launched once: with host codebooks (``java``/``fast``) the
+        codebooks go up in one copy; in device-codebook v2 K1 → K4 build them
+        with nothing fetched; in v1 one copy brings back K1's histograms and
+        K4's lengths, every member's depth is checked before K2 (the host
+        codec's error past 32 bits) and they give its ``opt_bits``.  Then K2,
+        and :meth:`unpack_rows`."""
+        datas = [m.data for m in members]
         valid = [d.size for d in datas]
-        return datas, valid, [(n + self.subblock - 1) // self.subblock for n in valid]
+        n = sum(valid)
+        v2 = self.config.compression.format_version >= 2
+        host_codebook = members[0].lengths is not None
+        fused = v2 and not host_codebook  # K1 → K4 → K2, nothing fetched in between
+        if not (host_codebook or fused):
+            with metrics.timed(Stage.FREQUENCY_ANALYSIS, n):
+                with span("upload"):
+                    x = upload_rows(datas, self.padded_size, self.device)
+                with span("launch"):
+                    hist_t = histogram_batch(x, valid)
+            with metrics.timed(Stage.HUFFMAN_TREE_BUILD, n):
+                with span("launch"):
+                    lens_t, codes_t = codebook_batch(hist_t)
+                with span("fetch"):
+                    hist, lengths = torch.cat([hist_t, lens_t]).cpu().numpy().reshape(
+                        2, len(members), 256)
+                with span("unpack"):
+                    for row in lengths:
+                        _check_depth(row)
+                    opt_bits = (hist.astype(np.int64) * lengths.astype(np.int64)).sum(1)
+            members = [m._replace(lengths=lens, opt_bits=int(bits))
+                       for m, lens, bits in zip(members, lengths, opt_bits)]
+        with metrics.timed(Stage.ENCODING, n):
+            if host_codebook or fused:
+                with span("upload"):
+                    x = upload_rows(datas, self.padded_size, self.device)
+                    if host_codebook:
+                        tables = np.stack([
+                            np.stack([m.lengths for m in members]).astype(np.int32),
+                            np.stack([m.codes for m in members]).astype(np.uint32).view(np.int32)])
+                        t = _host_tensor(tables).to(self.device)  # int32[2, rows, 256]
+                        lens_t, codes_t = t[0], t[1].view(torch.uint32)
+            with span("launch"):
+                if fused:
+                    lens_t, codes_t = codebook_batch(histogram_batch(x, valid))
+                words, totals, gaps = encode_batch(x, valid, lens_t, codes_t, self.out_words,
+                                                   self.subblock if v2 else 0)
+            return self.unpack_rows(members, words, totals, gaps, lens_t if fused else None)
 
-    def _live_words(self, opt_bits: int) -> int:
-        return min((opt_bits + 31) // 32, self.out_words)
+    def unpack_rows(self, members: list, words, totals, gaps, lengths=None) -> list:
+        """The :class:`EncodedChunk` of each of ``members`` from K2's outputs
+        for their rows, in one copy back and one unpack: the mesh route's
+        second seam into the codec.
+
+        ``words``, ``totals`` and ``gaps`` (None in v1) are
+        :func:`ops.encode_batch`'s for the members' rows, in order;
+        ``lengths`` is the rows' int32[rows, 256] code lengths where the
+        device built them, None where each member carries its own.  The copy
+        brings back the totals, those lengths, each row's gap array and its
+        live words, sized by the member's ``opt_bits``.  A device-built
+        code's depth is checked (K4 does not cap it), and every total must
+        equal the member's ``opt_bits``."""
+        rows = len(members)
+        nsubs = [] if gaps is None else [-(-m.data.size // self.subblock) for m in members]
+        nws = [min((m.opt_bits + 31) // 32, self.out_words) for m in members]
+        with span("fetch"):
+            parts = [totals] + ([] if lengths is None else [lengths])
+            parts += [gaps[b, :k] for b, k in enumerate(nsubs)]
+            flat = _fetch(parts + [words[b, :k] for b, k in enumerate(nws)])
+        with span("unpack"):
+            tbs, lens, *pieces = _split(
+                flat, [2 * rows, 0 if lengths is None else 256 * rows] + nsubs + nws)
+            tbs, lens = tbs.view(np.int64), lens.reshape(-1, 256)
+            gap_pieces, word_pieces = pieces[: len(nsubs)], pieces[len(nsubs) :]
+            out = []
+            for b, m in enumerate(members):
+                code_lengths = (m.lengths if lengths is None else lens[b]).astype(np.int32)
+                if lengths is not None:
+                    _check_depth(code_lengths)
+                tb = int(tbs[b])
+                self._check_total(tb, m.opt_bits)
+                gap_bits = gap_pieces[b].view(np.uint32).copy() if nsubs else None
+                out.append(EncodedChunk(words_to_bytes(word_pieces[b].view(np.uint32), tb),
+                                        code_lengths, m.sha, gap_bits))
+        return out
 
     def _check_total(self, tb: int, opt_bits: int) -> None:
         if tb != opt_bits:
@@ -561,157 +526,41 @@ class GpuChunkCodec(ChunkCodec):
         if tb > self.out_words * 32:
             raise RuntimeError("encoded stream exceeded device word capacity")
 
-    def _encode_group(self, group: list, metrics: StageMetrics) -> list:
-        """Host codebooks (``java``/``fast``, v1 and v2): the codebooks go up
-        in one copy, K2 runs once, and one copy brings back every member's
-        total bits, gap array (v2) and live words, sized by its ``opt_bits``."""
-        v2 = self.config.compression.format_version >= 2
-        datas, valid, nsubs = self._members(group)
-        nsubs = nsubs if v2 else []
-        nws = [self._live_words(m[5]) for m in group]
-        with metrics.timed(Stage.ENCODING, sum(valid)):
-            with span("upload"):
-                x = self._upload(datas)
-                tables = np.stack([
-                    np.stack([m[3] for m in group]).astype(np.int32),
-                    np.stack([m[4] for m in group]).astype(np.uint32).view(np.int32)])
-                t = _host_tensor(tables).to(self.device)  # int32[2, rows, 256]
-            with span("launch"):
-                words, totals, gaps = encode_batch(x, valid, t[0], t[1].view(torch.uint32),
-                                                   self.out_words, self.subblock if v2 else 0)
-            with span("fetch"):
-                parts = [totals] + [gaps[b, :k] for b, k in enumerate(nsubs)]
-                flat = _fetch(parts + [words[b, :k] for b, k in enumerate(nws)])
-            with span("unpack"):
-                pieces = _split(flat, [2 * len(group)] + nsubs + nws)
-                tbs = pieces[0].view(np.int64)
-                out = []
-                for b, (_, _, sha, lengths, _, opt_bits) in enumerate(group):
-                    self._check_total(int(tbs[b]), opt_bits)
-                    gap_bits = pieces[1 + b].view(np.uint32).copy() if v2 else None
-                    payload = words_to_bytes(pieces[1 + len(nsubs) + b].view(np.uint32),
-                                             int(tbs[b]))
-                    out.append(EncodedChunk(payload, lengths.astype(np.int32), sha, gap_bits))
-        return out
-
-    def _encode_group_device_codebook_v2(self, group: list, metrics: StageMetrics) -> list:
-        """Batched K1 → K4 → K2 with nothing fetched in between, then one copy
-        back of every member's total bits, lengths, gap array and live words;
-        each member's depth and total are checked as the per-chunk path does."""
-        datas, valid, nsubs = self._members(group)
-        nws = [self._live_words(m[5]) for m in group]
-        rows = len(group)
-        with metrics.timed(Stage.ENCODING, sum(valid)):
-            with span("upload"):
-                x = self._upload(datas)
-            with span("launch"):
-                lens_t, codes_t = codebook_batch(histogram_batch(x, valid))
-                words, totals, gaps = encode_batch(x, valid, lens_t, codes_t, self.out_words,
-                                                   self.subblock)
-            with span("fetch"):
-                parts = [totals, lens_t] + [gaps[b, :k] for b, k in enumerate(nsubs)]
-                flat = _fetch(parts + [words[b, :k] for b, k in enumerate(nws)])
-            with span("unpack"):
-                pieces = _split(flat, [2 * rows, 256 * rows] + nsubs + nws)
-                tbs = pieces[0].view(np.int64)
-                lengths = pieces[1].reshape(rows, 256)
-                out = []
-                for b, (_, _, sha, _, _, opt_bits) in enumerate(group):
-                    _check_depth(lengths[b])
-                    self._check_total(int(tbs[b]), opt_bits)
-                    payload = words_to_bytes(pieces[2 + rows + b].view(np.uint32), int(tbs[b]))
-                    out.append(EncodedChunk(payload, lengths[b].copy(), sha,
-                                            pieces[2 + b].view(np.uint32).copy()))
-        return out
-
-    def _encode_group_device_codebook_v1(self, group: list, metrics: StageMetrics) -> list:
-        """Batched K1 → K4, one copy back of the histograms and lengths, every
-        member's depth checked before K2 (the host codec's error past 32
-        bits), batched K2, then one copy of the totals and live words."""
-        datas, valid, _ = self._members(group)
-        rows = len(group)
-        with metrics.timed(Stage.FREQUENCY_ANALYSIS, sum(valid)):
-            with span("upload"):
-                x = self._upload(datas)
-            with span("launch"):
-                hist_t = histogram_batch(x, valid)
-        with metrics.timed(Stage.HUFFMAN_TREE_BUILD, sum(valid)):
-            with span("launch"):
-                lens_t, codes_t = codebook_batch(hist_t)
-            with span("fetch"):
-                hist, lengths = torch.cat([hist_t, lens_t]).cpu().numpy().reshape(2, rows, 256)
-            with span("unpack"):
-                for row in lengths:
-                    _check_depth(row)
-                opt_bits = (hist.astype(np.int64) * lengths.astype(np.int64)).sum(1)
-        with metrics.timed(Stage.ENCODING, sum(valid)):
-            with span("launch"):
-                words, totals, _ = encode_batch(x, valid, lens_t, codes_t, self.out_words)
-            with span("fetch"):
-                nws = [self._live_words(int(bits)) for bits in opt_bits]
-                flat = _fetch([totals] + [words[b, :k] for b, k in enumerate(nws)])
-            with span("unpack"):
-                pieces = _split(flat, [2 * rows] + nws)
-                tbs = pieces[0].view(np.int64)
-                out = []
-                for b, (_, _, sha, _, _, _) in enumerate(group):
-                    self._check_total(int(tbs[b]), int(opt_bits[b]))
-                    payload = words_to_bytes(pieces[1 + b].view(np.uint32), int(tbs[b]))
-                    out.append(EncodedChunk(payload, lengths[b].copy(), sha, None))
-        return out
-
     # -- decode -------------------------------------------------------------
 
     def decode_chunk(self, payload, meta, header, metrics: StageMetrics) -> np.ndarray:
-        if _is_raw_stored(meta, header):
-            with metrics.timed(Stage.DECODING, meta.original_size):
-                return np.frombuffer(payload, dtype=np.uint8)
-        if _finds_gaps_on_device(meta, header):
-            return self._decode_group([payload], [meta], header, metrics)[0]
-        if not _decodes_on_device(meta, header):
-            host_decode_routes.add()
-            return self._cpu.decode_chunk(payload, meta, header, metrics,
-                                          decode_span="host_decode")
-
-        with metrics.timed(Stage.HUFFMAN_TREE_BUILD, span="decode_tables"):
-            host_tables = build_decode_tables(meta.code_lengths)
-            with span("upload"):
-                tables = decode_tables_to_torch(*host_tables, self.device)
-        with metrics.timed(Stage.DECODING, meta.original_size):
-            with span("upload"):
-                words = _host_tensor(payload_to_words(payload)).to(self.device)
-                gaps = _host_tensor(meta.gap_bits.astype(np.uint32)).to(self.device)
-            with span("launch"):
-                out = decode(words, gaps, *tables, header.subblock_symbols, meta.original_size)
-            with span("fetch"):
-                return out.cpu().numpy()
+        """A group of one."""
+        return self.decode_chunk_batch([payload], [meta], header, metrics)[0]
 
     def decode_chunk_batch(self, payloads, metas, header, metrics: StageMetrics) -> list:
-        """Decode a group of chunks (``TpuChunkCodec.decode_chunk_batch``):
-        raw-stored members pass through, codes deeper than 16 bits take the
-        counted host route, and all other members go to one launch of K3
-        (after one of K5 in v1), whatever their depth; a lone such member
-        takes the per-chunk path.  The JAX service groups by its decoder's
-        static parameters and decodes v1 on the host; K3 and K5 read each
-        member's tables at run time."""
-        if self.batch_chunks <= 1 or len(payloads) == 1:
-            return [self.decode_chunk(p, m, header, metrics) for p, m in zip(payloads, metas)]
-        on_device = (_decodes_on_device if header.version >= ct.VERSION_V2
-                     else _finds_gaps_on_device)
-        group = [j for j, m in enumerate(metas)
-                 if not _is_raw_stored(m, header) and on_device(m, header)]
-        if len(group) == 1:
-            group = []
-        results = [None if j in group else self.decode_chunk(p, m, header, metrics)
-                   for j, (p, m) in enumerate(zip(payloads, metas))]
-        if group:
-            outs = self._decode_group([payloads[j] for j in group], [metas[j] for j in group],
-                                      header, metrics)
-            for j, out in zip(group, outs):
+        """Decode a group of chunks (``TpuChunkCodec.decode_chunk_batch``),
+        each member as :func:`decode_route` sends it: raw-stored members pass
+        through, the host route's go to the host codec one after another, and
+        the device members to one launch of K3 (after one of K5 in v1),
+        whatever their depth.  The JAX service groups by its decoder's static
+        parameters and decodes v1 on the host; K3 and K5 read each member's
+        tables at run time."""
+        results: list = [None] * len(metas)
+        rows = []
+        for j, (p, m) in enumerate(zip(payloads, metas)):
+            route = decode_route(m, header)
+            if route == "raw":
+                with metrics.timed(Stage.DECODING, m.original_size):
+                    results[j] = np.frombuffer(p, dtype=np.uint8)
+            elif route == "host":
+                host_decode_routes.add()
+                results[j] = self._cpu.decode_chunk(p, m, header, metrics,
+                                                    decode_span="host_decode")
+            else:
+                rows.append(j)
+        if rows:
+            outs = self._decode_rows([payloads[j] for j in rows], [metas[j] for j in rows],
+                                     header, metrics)
+            for j, out in zip(rows, outs):
                 results[j] = out
         return results
 
-    def _decode_group(self, payloads, metas, header, metrics: StageMetrics) -> list:
+    def _decode_rows(self, payloads, metas, header, metrics: StageMetrics) -> list:
         """Batched K3: the members' streams, gap arrays and tables go up in
         one copy, and their outputs come back in one.  A v1 group has no gap
         arrays to upload: K5 finds them on the device, and each member's end
@@ -722,7 +571,7 @@ class GpuChunkCodec(ChunkCodec):
         total = sum(n_outs)
         with metrics.timed(Stage.DECODING, total):
             with span("upload"):
-                words, word_offsets, gaps, offsets, *tables_t = self._decode_inputs(
+                words, word_offsets, gaps, offsets, *tables_t = decode_inputs(
                     payloads, metas, tables, self.device)
             with span("launch"):
                 subblock, ends = header.subblock_symbols, None
@@ -744,27 +593,6 @@ class GpuChunkCodec(ChunkCodec):
                                 f"chunk {m.index}: its {m.original_size} symbols end at bit "
                                 f"{end}, past its {len(p)}-byte payload")
                 return _split(out[:total], n_outs)
-
-    @staticmethod
-    def _decode_inputs(payloads, metas, tables, device) -> tuple:
-        """The rows' streams, gap arrays and decode tables on ``device``, in
-        one copy: ``(words, word_offsets, gaps, gap_offsets, limits, adj,
-        sym)`` as :func:`ops.decode_batch` takes them; a chunk without a gap
-        array (v1) has an empty one."""
-        rows = len(metas)
-        words = [payload_to_words(p).view(np.int32) for p in payloads]
-        gaps = [np.zeros(0, np.int32) if m.gap_bits is None
-                else m.gap_bits.astype(np.uint32).view(np.int32) for m in metas]
-        word_offsets = np.cumsum([0] + [w.size for w in words]).tolist()
-        gap_offsets = np.cumsum([0] + [g.size for g in gaps]).tolist()
-        limits, adj, sym = (np.stack([t[k] for t in tables]).astype(np.int32) for k in range(3))
-        host = np.concatenate(words + gaps + [limits.ravel(), adj.ravel(), sym.ravel()])
-        t = _host_tensor(host).to(device)
-        w, g = word_offsets[-1], gap_offsets[-1]
-        pieces = torch.split(t, [w, g, TABLE_BITS * rows, TABLE_BITS * rows, 256 * rows])
-        return (pieces[0].view(torch.uint32), word_offsets, pieces[1].view(torch.uint32),
-                gap_offsets, pieces[2].view(rows, TABLE_BITS), pieces[3].view(rows, TABLE_BITS),
-                pieces[4].view(rows, 256))
 
 
 class GpuCompressionService(CompressionService):

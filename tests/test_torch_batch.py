@@ -29,7 +29,9 @@ from datacomp_tpu.utils.testdata import generate_bytes  # noqa: E402
 from datacomp_tpu_torch import ops  # noqa: E402
 from datacomp_tpu_torch.core import read_container  # noqa: E402
 from datacomp_tpu_torch.models import StageMetrics  # noqa: E402
-from datacomp_tpu_torch.services import GpuCompressionService, gpu_service  # noqa: E402
+from datacomp_tpu_torch.services import (  # noqa: E402
+    CpuCompressionService, GpuCompressionService, gpu_service,
+)
 from datacomp_tpu_torch.services import pipeline  # noqa: E402
 
 ROW = 1 << 16  # the kernels' rows: 64 KiB
@@ -215,7 +217,8 @@ def test_batched_dcz_equals_unbatched(six_chunks, version, mode):
                                              codebook_mode=mode), device="cpu") as svc:
             assert svc._codec.batch_chunks == batch
             svc.compress(src, files[batch])
-        assert ops.COUNTERS["encode_batch"][1].value == before + (2 if batch == 4 else 0)
+        # six coded chunks: groups of four and two, or six groups of one
+        assert ops.COUNTERS["encode_batch"][1].value == before + (2 if batch == 4 else 6)
     with open(files[1], "rb") as f, open(files[4], "rb") as g:
         assert f.read() == g.read()
     out = str(d / "back.out")
@@ -240,6 +243,57 @@ def test_batched_device_v2_equals_jax_batched_service(six_chunks):
         assert svc._codec.batch_chunks == 4
         svc.compress(src, ref)
     with open(port, "rb") as f, open(ref, "rb") as g:
+        assert f.read() == g.read()
+
+
+@pytest.fixture(scope="module")
+def one_and_four(tmp_path_factory):
+    """A file of one chunk (700,000 bytes of text) and one of four: text,
+    random (stored raw in v2), skewed and a ragged tail."""
+    d = tmp_path_factory.mktemp("one_path")
+    srcs = {1: d / "one.bin", 4: d / "four.bin"}
+    srcs[1].write_bytes(generate_bytes("text", 700_000, seed=5))
+    srcs[4].write_bytes(b"".join(generate_bytes(kind, n) for kind, n in (
+        ("text", 1 << 20), ("random", 1 << 20), ("skewed", 1 << 20), ("compressible", 12_345))))
+    return d, srcs
+
+
+@pytest.mark.parametrize("chunks", [1, 4])
+@pytest.mark.parametrize("version,mode", [(1, "java"), (2, "fast"), (2, "device")])
+def test_a_lone_chunk_and_a_group_take_one_path(one_and_four, version, mode, chunks):
+    """At ``batch_chunks`` 4 a file of one chunk and one of four run the
+    batched ops alone, one call each a group: the unbatched encode, decode
+    and codebook never run, and the histogram only for the availability
+    probe.  Each ``.dcz`` is the reference's: the host codec's with a host
+    codebook, the JAX service's with the device's."""
+    d, srcs = one_and_four
+    src = str(srcs[chunks])
+    dcz, ref, out = (str(d / f"{version}{mode}{chunks}.{ext}") for ext in ("dcz", "ref", "out"))
+    before = {name: [c.value for c in pair] for name, pair in ops.COUNTERS.items()}
+    with GpuCompressionService(_port_cfg(4, format_version=version, codebook_mode=mode),
+                               device="cpu") as svc:
+        assert svc.is_available()
+        svc.compress(src, dcz)
+        svc.decompress(dcz, out)
+    calls = {name: [c.value - b for c, b in zip(pair, before[name])]
+             for name, pair in ops.COUNTERS.items()}
+    assert {name: calls[name] for name in ("histogram", "encode", "decode", "codebook")} == {
+        "histogram": [0, 1], "encode": [0, 0], "decode": [0, 0], "codebook": [0, 0]}
+    assert calls["encode_batch"] == [0, 1] and calls["decode_batch"] == [0, 1]
+    with open(src, "rb") as f, open(out, "rb") as g:
+        assert f.read() == g.read()
+    if mode == "device":
+        jcfg = datacomp_tpu.config.load_config(
+            compression={"chunk_size_mb": 1, "subblock_symbols": S, "format_version": 2,
+                         "codebook_mode": "device"},
+            device={"batch_chunks": 4, "fallback_on_error": False})
+        with TpuCompressionService(jcfg) as svc:
+            svc.compress(src, ref)
+    else:
+        with CpuCompressionService(_port_cfg(4, format_version=version,
+                                             codebook_mode=mode)) as svc:
+            svc.compress(src, ref)
+    with open(dcz, "rb") as f, open(ref, "rb") as g:
         assert f.read() == g.read()
 
 

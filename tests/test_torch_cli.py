@@ -123,7 +123,7 @@ def test_cli_max_code_len_matches_jax(src, tmp_path, monkeypatch, capsys, flags)
     delta = _delta(before)
     assert capsys.readouterr().out.count("Verify:     OK") == 3
     assert _read(pc) == _read(j) and _read(pg) == _read(j)
-    assert delta["encode"] == (0, 2) and delta["encode_routes"] == 0
+    assert delta["encode_batch"] == (0, 2) and delta["encode_routes"] == 0
     header, _ = read_container(pg)
     assert header.version == int(flags[1])
     for c, h in zip(header.chunks, _hists(src)):
@@ -167,9 +167,9 @@ def test_cli_decompress_backend_gpu_runs_plain_k3(src, capped, tmp_path, monkeyp
     before = _calls()
     assert pcli.main(["decompress", capped, out, "1", "--backend", "gpu"]) == 0
     delta = _delta(before)
-    assert delta["decode"] == (0, 2) and delta["decode_routes"] == 0
+    assert delta["decode_batch"] == (0, 2) and delta["decode_routes"] == 0
     assert all(v == (0, 0) for name, v in delta.items() if name not in
-               ("decode", "encode_routes", "decode_routes"))
+               ("decode_batch", "encode_routes", "decode_routes"))
     assert _read(out) == _read(src)
 
 

@@ -220,10 +220,13 @@ def test_routing_by_format_depth_and_size():
     def meta(depth, n):
         lengths = np.zeros(256, np.int32)
         lengths[:2] = depth
-        return SimpleNamespace(code_lengths=lengths, original_size=n, compressed_size=n)
+        return SimpleNamespace(code_lengths=lengths, original_size=n, compressed_size=n,
+                               gap_bits=None)
 
-    v1, v2 = SimpleNamespace(version=1), SimpleNamespace(version=2)
-    on = gpu_service._finds_gaps_on_device
+    v1, v2 = (SimpleNamespace(version=v, subblock_symbols=4096) for v in (1, 2))
+
+    def on(m, header):  # a v1 chunk on the device: K5, then K3
+        return gpu_service.decode_route(m, header) == "device"
     assert on(meta(16, 16 << 20), v1) and on(meta(1, 1), v1)
     assert not on(meta(16, 16 << 20), v2)
     assert not on(meta(17, 16 << 20), v1) and not on(meta(0, 0), v1)

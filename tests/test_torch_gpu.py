@@ -600,12 +600,12 @@ def test_device_codebook_mode_16mib_round_trip(cuda, tmp_path):
     src.write_bytes(data)
     cfg = datacomp_tpu_torch.config.load_config(compression={
         "chunk_size_mb": 16, "format_version": 2, "codebook_mode": "device"})
-    launches = ops.COUNTERS["codebook"][0].value
+    launches = ops.COUNTERS["codebook_batch"][0].value
     with GpuCompressionService(cfg, device="cuda") as svc:
         svc.compress(str(src), str(tmp_path / "g.dcz"))
         svc.decompress(str(tmp_path / "g.dcz"), str(tmp_path / "g.out"))
     assert (tmp_path / "g.out").read_bytes() == data
-    assert ops.COUNTERS["codebook"][0].value == launches + 1
+    assert ops.COUNTERS["codebook_batch"][0].value == launches + 1
     header, _ = read_container(str(tmp_path / "g.dcz"))
     hist = np.bincount(np.frombuffer(data, np.uint8), minlength=256).astype(np.int32)
     want, _ = ops.codebook_reference(torch.from_numpy(hist))
@@ -984,7 +984,7 @@ def test_resume_on_the_card_equals_one_shot(cuda, tmp_path, monkeypatch):
     monkeypatch.setenv("DATACOMP_COMPRESSION_CODEBOOK_MODE", "fast")
     ops.reset_counters()
     assert cli.main(["resume", str(src), dcz, "1", "--last-chunk", "1"]) == 0
-    launches = ops.COUNTERS["encode"][0].value + ops.COUNTERS["encode_batch"][0].value
+    launches = ops.COUNTERS["encode_batch"][0].value
     assert launches >= 1 and not any(c[1].value for c in ops.COUNTERS.values())
     with open(dcz, "rb") as f:
         assert f.read() == full
@@ -1026,7 +1026,7 @@ def test_golden_fixtures_on_the_card(cuda, tmp_path, name):
         header, _ = read_container(dcz)
         coded = [ops.max_code_len(c.code_lengths) for c in header.chunks
                  if c.code_lengths.any()]
-        assert ops.COUNTERS["encode"][0].value == len(coded)
+        assert ops.COUNTERS["encode_batch"][0].value == len(coded)
         if version == 1:
             assert len(blob) == spec["dcz_size"]
             assert hashlib.sha256(blob).hexdigest() == spec["dcz_sha256"]
@@ -1037,7 +1037,8 @@ def test_golden_fixtures_on_the_card(cuda, tmp_path, name):
             with PortCpuService(cfg) as svc:
                 svc.compress(str(src), host)
             assert blob == open(host, "rb").read()
-            assert ops.COUNTERS["decode"][0].value == sum(0 < d <= ops.TABLE_BITS for d in coded)
+            assert ops.COUNTERS["decode_batch"][0].value == sum(
+                0 < d <= ops.TABLE_BITS for d in coded)
     if os.path.exists(archive):
         gpu_service.host_decode_routes.reset()
         ops.reset_counters()

@@ -12,6 +12,8 @@ Inputs are made from seeds; everything compared is integers or bytes, so
 every comparison is exact (tolerance 0).
 """
 
+import threading
+
 import numpy as np
 import pytest
 
@@ -212,6 +214,28 @@ def test_local_device_v2_file(files, reference):
     assert counts["dev2"] == {k: 4 for k in ("histogram_batch", "codebook_batch", "encode_batch")}
 
 
+def test_local_path_hashes_on_the_codec_pool(files, monkeypatch):
+    """Through the local path every chunk of ``INLINE_HASH_BYTES`` or more
+    hashes on the codec's ``dcz-sha256`` thread and the tail on its worker,
+    as on one device, and the file is unchanged."""
+    d, _ = files
+    real, hashed = gpu_service.compute_sha256, []
+
+    def recorded(data):
+        hashed.append((data.size, threading.current_thread().name.startswith("dcz-sha256")))
+        return real(data)
+
+    monkeypatch.setattr(gpu_service, "compute_sha256", recorded)
+    parallel.compress_multihost(str(d / "mixed.bin"), str(d / "hashed.dcz"), _cfg(**DEV2),
+                                backend="gpu", mesh=_local(2))
+    header, _ = read_container(str(d / "hashed.dcz"))
+    assert sorted(hashed) == sorted(
+        (c.original_size, c.original_size >= gpu_service.INLINE_HASH_BYTES)
+        for c in header.chunks)
+    assert any(on_pool for _, on_pool in hashed) and not all(on_pool for _, on_pool in hashed)
+    assert (d / "hashed.dcz").read_bytes() == (d / "dev2.dcz").read_bytes()
+
+
 def test_local_fast_v2_file_is_the_host_codecs(files):
     """Host codebooks take the single-device path (the step builds device
     codebooks only): the host codec's file."""
@@ -219,7 +243,7 @@ def test_local_fast_v2_file_is_the_host_codecs(files):
     with CpuCompressionService(_cfg(**FAST2)) as svc:
         svc.compress(str(d / "mixed.bin"), str(d / "ref-fast2.dcz"))
     assert (d / "fast2.dcz").read_bytes() == (d / "ref-fast2.dcz").read_bytes()
-    assert set(counts["fast2"]) == {"encode"}  # batch 1 on the CPU: a launch a chunk
+    assert set(counts["fast2"]) == {"encode_batch"}  # batch 1 on the CPU: a launch a chunk
 
 
 def test_local_encode_raises_on_a_wrong_total(files, monkeypatch):

@@ -246,7 +246,7 @@ def test_torchrun_cli_sharded_two_ranks(tmp_path, capsys, monkeypatch):
     counts = json.loads(res.stdout.split("counts: ")[1].splitlines()[0])
     depths = [max_code_len(c.code_lengths)
               for c in read_container(str(tmp_path / "two.dcz"))[0].chunks]
-    assert counts["plain"]["decode"] == sum(1 for dep in depths if 0 < dep <= TABLE_BITS)
+    assert counts["plain"]["decode_batch"] == sum(1 for dep in depths if 0 < dep <= TABLE_BITS)
     assert counts["host_decode_routes"] == sum(1 for dep in depths if dep > TABLE_BITS)
 
 

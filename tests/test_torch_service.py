@@ -94,11 +94,11 @@ def test_dcz_identical_to_cpu_and_tpu_services(dcz_files):
 def test_port_decodes_jax_written_file(corpus, dcz_files):
     d, _, data = corpus
     out = str(d / "from_tpu.out")
-    plain_calls = COUNTERS["decode"][1].value
+    plain_calls = COUNTERS["decode_batch"][1].value
     with GpuCompressionService(cfg(), device="cpu") as svc:
         svc.decompress(dcz_files["tpu"], out)
     assert read(out) == data
-    assert COUNTERS["decode"][1].value == plain_calls + 2  # the two coded chunks
+    assert COUNTERS["decode_batch"][1].value == plain_calls + 2  # the two coded chunks
 
 
 def test_jax_decodes_port_written_file(corpus, dcz_files):
@@ -149,11 +149,11 @@ def test_cli_round_trip(corpus, capsys, monkeypatch):
     d, src, data = corpus
     monkeypatch.setenv("DATACOMP_DEVICE_PLATFORM", "cpu")
     dcz, out = str(d / "cli.dcz"), str(d / "cli.out")
-    launches = COUNTERS["encode"][1].value
+    launches = COUNTERS["encode_batch"][1].value
     assert cli.main(["compress", src, dcz, "1", "--format", "2",
                      "--codebook-mode", "fast"]) == 0
     assert "Verify:     OK" in capsys.readouterr().out
-    assert COUNTERS["encode"][1].value == launches + 2  # the two coded chunks
+    assert COUNTERS["encode_batch"][1].value == launches + 2  # the two coded chunks
     assert read_container(dcz)[0].version == 2
     assert cli.main(["decompress", dcz, out, "1"]) == 0
     assert read(out) == data
